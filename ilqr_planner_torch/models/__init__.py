@@ -1,0 +1,27 @@
+"""Robot models: kinematic chains from URDF, FK and the geometric Jacobian.
+
+`PANDA_URDF` is the path of the Franka Emika Panda arm shipped with the
+package (`panda_link0` -> `panda_tip`).
+"""
+
+from pathlib import Path
+
+from ilqr_planner_torch.models.chain import (KinematicChain, chain_fk,
+                                             chain_jacobian, chain_kin)
+from ilqr_planner_torch.models.kinstate import KinState
+from ilqr_planner_torch.models.robot import Robot
+from ilqr_planner_torch.models.urdf import chain_from_urdf, parse_urdf
+
+PANDA_URDF = Path(__file__).resolve().parent / "data" / "panda.urdf"
+
+__all__ = [
+    "KinematicChain",
+    "KinState",
+    "PANDA_URDF",
+    "Robot",
+    "chain_fk",
+    "chain_from_urdf",
+    "chain_jacobian",
+    "chain_kin",
+    "parse_urdf",
+]

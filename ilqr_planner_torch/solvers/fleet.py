@@ -1,0 +1,621 @@
+"""Lane-major (struct-of-arrays) fleet solver, first-order slice.
+
+PyTorch counterpart of the JAX package's `solvers/fleet.py`. The scenario
+batch B is the TRAILING axis of every tensor, so on the card thread b reads
+address b. Small matrices are [3, 3, B] / [n, n, B] tensors; products over
+them broadcast and reduce over the inner axis (`_mm`, `_mv`) instead of the
+JAX package's trace-time lists of [B] vectors. Multiplying or adding the
+exact zeros and ones that the JAX lists folded away leaves every value as it
+was, so the only numerical difference is the order of the sums (~1 ulp).
+
+Per iteration: the backward sweep (`_backward`: the CUDA kernel
+`ops/cuda_kernels/segment_backward.py` on the card, its plain twin on the
+CPU), then the affine line-search family (`_affine_family`, one pass over
+the horizon), then the scan-free trials alpha = 1, 1/2, ..., 2^-10 with
+early exit once every lane has accepted (`_run_trials_affine`). Lanes freeze
+one by one (early stop alpha sqrt(sum ||du||) < 1e-3 and cost < 1e-3, or
+the iteration budget); the loop ends when every lane is frozen.
+
+Scope of this slice: kinds 'posorn', 'joint', 'point' at nb_deriv 1 on a
+chain robot without an object frame, no per-scenario keypoint overrides,
+affine line search. The rest is ROADMAP Queue 1 items 7-9 and slice 2.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from ilqr_planner_torch.ops.cuda_kernels.segment_backward import segment_backward
+from ilqr_planner_torch.solvers.ilqr import ILQRResult
+from ilqr_planner_torch.systems.spec import Spec
+
+__all__ = ["make_fleet_solver", "fleet_supported"]
+
+_REG = 1e-6  # gain-elimination ridge
+
+
+def fleet_supported(spec: Spec) -> bool:
+    """True when this spec is in the port's fleet scope."""
+    return (spec.kind in ("posorn", "joint", "point") and spec.nb_deriv == 1
+            and spec.robot is not None and spec.robot.kind == "chain"
+            and spec.robot.frame is None)
+
+
+# ---------------------------------------------------------------------------
+# host-side constants
+# ---------------------------------------------------------------------------
+
+class _SubC:
+    """Constants of one system, as tensors in the spec's dtype and device."""
+
+    def __init__(self, spec: Spec):
+        self.kind = spec.kind
+        self.n = spec.nx
+        self.dof = spec.dof
+        self.nt = spec.nt
+        self.nq = spec.nq_var
+        self.car_dim = spec.robot.nb_car_dim
+        np_dtype = np.dtype(str(spec.dtype).removeprefix("torch."))
+        dev = spec.device
+
+        def f(a):
+            return np.asarray(a.detach().cpu().numpy(), np_dtype)
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np_dtype), device=dev)
+
+        self.Rt = t(f(spec.Rt))
+        self.limits_set = spec.limits_set
+        if self.limits_set:
+            self.smax = t(f(spec.state_max))
+            self.smin = t(f(spec.state_min))
+            self.weight = t(f(spec.limit_weight))
+            self.penalty = float(f(spec.penalty))
+        ch = spec.robot.chain
+        self.origin_rot = t(f(ch.origin_rot))
+        self.origin_pos = t(f(ch.origin_pos))
+        self.axis = t(f(ch.axis))
+        self.prismatic = [bool(v > 0) for v in f(ch.prismatic)]
+        self.tip_rot = t(f(ch.tip_rot))
+        self.tip_pos = t(f(ch.tip_pos))
+        # Rodrigues constants per joint: K = [axis]x and K @ K, in float64
+        # on the host, then rounded once to the working dtype
+        self.skew, self.skew2 = [], []
+        for a in f(ch.axis).astype(np.float64):
+            K = np.array([[0.0, -a[2], a[1]], [a[2], 0.0, -a[0]],
+                          [-a[1], a[0], 0.0]])
+            self.skew.append(t(K)[:, :, None])
+            self.skew2.append(t(K @ K)[:, :, None])
+
+        mask = f(spec.kp_mask) != 0
+        mu, prec = f(spec.mu), f(spec.prec)
+        radius, thresh = f(spec.pos_radius), f(spec.orn_thresh)
+        self.kp = []
+        for k in np.nonzero(mask)[0]:
+            kp = {"k": int(k), "mu": t(mu[k])[:, None], "prec": t(prec[k]),
+                  "radius": float(radius[k]),
+                  "thresh": [float(v) for v in thresh[k]]}
+            if self.kind == "posorn":
+                # target quaternion (raw, for E) and its unit version (the
+                # log-map base, normalized in float64 like the JAX package)
+                q_t = mu[k, self.car_dim:self.car_dim + 4].astype(np.float64)
+                nrm = np.linalg.norm(q_t)
+                kp["q_zero"] = bool(np.all(q_t == 0))
+                kp["q_unit"] = t(q_t / (nrm if nrm > 0 else 1.0))[:, None]
+                w, x, y, z = q_t
+                kp["E"] = t([[-x, w, -z, y], [-y, z, w, -x], [-z, -y, x, w]])
+            self.kp.append(kp)
+        self.kp_steps = tuple(d["k"] for d in self.kp)
+
+
+class _Consts:
+    """Problem constants of a fleet solve."""
+
+    def __init__(self, spec: Spec):
+        if not fleet_supported(spec):
+            raise NotImplementedError(
+                f"fleet scope of this slice: posorn/joint/point at nb_deriv 1 "
+                f"on a chain robot without object frame; got kind="
+                f"{spec.kind!r} nb_deriv={spec.nb_deriv} (ROADMAP Queue 1 "
+                f"items 7-9)")
+        self.n = spec.nx
+        self.m = spec.nu
+        self.dof = spec.dof
+        self.H = spec.horizon
+        self.dtype = spec.dtype
+        self.device = spec.device
+        np_dtype = np.dtype(str(spec.dtype).removeprefix("torch."))
+        self.dt = float(np.asarray(spec.dt.cpu().numpy(), np_dtype))
+        self.Rt = [float(v) for v in np.asarray(spec.Rt.cpu().numpy(), np_dtype)]
+        self.subs = [_SubC(spec)]
+        steps = sorted({k for sc in self.subs for k in sc.kp_steps})
+        self.kp_steps = tuple(steps)
+        self.kp_at = {k: [(i, d) for i, sc in enumerate(self.subs)
+                          for d in sc.kp if d["k"] == k] for k in steps}
+
+
+# ---------------------------------------------------------------------------
+# lane-major algebra: [i, j(, B)] tensors, the lane axis last
+# ---------------------------------------------------------------------------
+
+def _mm(A, Bm):
+    """A [i, j(, B)] @ Bm [j, k(, B)] -> [i, k, B]."""
+    A = A if A.dim() == 3 else A[..., None]     # constants get a lane axis
+    Bm = Bm if Bm.dim() == 3 else Bm[..., None]
+    return (A[:, :, None] * Bm[None]).sum(1)
+
+
+def _mv(A, v):
+    """A [i, j(, B)] @ v [j(, B)] -> [i, B]."""
+    A = A if A.dim() == 3 else A[..., None]
+    v = v if v.dim() == 2 else v[..., None]
+    return (A * v[None]).sum(1)
+
+
+# ---------------------------------------------------------------------------
+# S^3 ops, lane-major (the zero guards of ops/sd.py)
+# ---------------------------------------------------------------------------
+
+def _q_unit(q):
+    """to_unit_norm with the zero guard."""
+    n = torch.sqrt((q * q).sum(0))
+    return q / torch.where(n > 0, n, torch.ones_like(n))
+
+
+def _q_distance(n1, n2):
+    """Geodesic distance with the hemisphere flip: the raw dot product,
+    clamped, and arccos shifted by -pi when negative."""
+    dclip = torch.clamp((n1 * n2).sum(0), -1.0, 1.0)
+    ac = torch.arccos(dclip)
+    return torch.where(dclip < 0, ac - math.pi, ac)
+
+
+def _q_log_map(b, b_zero, y):
+    """log_map(base, y) with the zero guards; `b` is the already-unit
+    constant base [4, 1] and `b_zero` whether the raw base was all zero."""
+    if b_zero:
+        return torch.zeros_like(y)
+    yn = _q_unit(y)
+    dot = (b * yn).sum(0)
+    temp = yn - dot * b
+    tn = torch.sqrt((temp * temp).sum(0))
+    dist = _q_distance(b, yn)
+    tsafe = torch.where(tn > 0, tn, torch.ones_like(tn))
+    out = torch.where(tn == 0, torch.zeros_like(temp), dist * temp / tsafe)
+    return torch.where((y == 0).all(0), torch.zeros_like(out), out)
+
+
+# ---------------------------------------------------------------------------
+# FK + geometric Jacobian, lane-major
+# ---------------------------------------------------------------------------
+
+def _fk_walk(sc: _SubC, q):
+    """World chain walk, q [dof, B] -> (p [3, B], R [3, 3, B], zs, os_) with
+    the world joint axes and origins as lists of [3, B]."""
+    B = q.shape[-1]
+    R = torch.eye(3, dtype=q.dtype, device=q.device)[..., None]
+    p = torch.zeros(3, 1, dtype=q.dtype, device=q.device)
+    zs, os_ = [], []
+    for i in range(len(sc.prismatic)):
+        p = p + _mv(R, sc.origin_pos[i])
+        R = _mm(R, sc.origin_rot[i])
+        z = _mv(R, sc.axis[i])
+        if sc.prismatic[i]:
+            p = p + z * q[i]
+        else:
+            Raa = (torch.eye(3, dtype=q.dtype, device=q.device)[..., None]
+                   + torch.sin(q[i]) * sc.skew[i]
+                   + (1.0 - torch.cos(q[i])) * sc.skew2[i])
+            R = _mm(R, Raa)
+        zs.append(z.expand(3, B))
+        os_.append(p.expand(3, B))
+    return p, R, zs, os_
+
+
+def _walk_tip(sc: _SubC, p, R):
+    """Apply the fixed tip transform: world EE pose."""
+    return p + _mv(R, sc.tip_pos), _mm(R, sc.tip_rot)
+
+
+def _walk_jac(sc: _SubC, zs, os_, p_ee):
+    """World geometric Jacobian [6, dof, B] from the walk."""
+    cols = []
+    for z, o, prism in zip(zs, os_, sc.prismatic):
+        if prism:
+            cols.append(torch.cat([z, torch.zeros_like(z)]))
+        else:
+            cols.append(torch.cat([torch.linalg.cross(z, p_ee - o, dim=0), z]))
+    return torch.stack(cols, dim=1)
+
+
+def _mat_to_quat_soa(R):
+    """Branchless Shepperd extraction over lanes, [3, 3, B] -> [4, B], the
+    candidates of ops.so3.mat_to_quat: the scores tr and 2 m_ii - tr, the
+    largest kept (the first on a tie); its quaternion is the matching row of
+    the symmetric numerator matrix [[., w^T], [w, R + R^T]] (w the skew part
+    of R) over s = 2 sqrt(1 + score), with s / 4 on the diagonal. The scores
+    sum in another order than m00 - m11 - m22 (about 1 ulp)."""
+    B = R.shape[-1]
+    dg = torch.diagonal(R, dim1=0, dim2=1).T                  # [3, B]
+    tr = dg.sum(0, keepdim=True)
+    score = torch.cat([tr, 2.0 * dg - tr])                    # [4, B]
+    best = torch.argmax(score, dim=0)
+    s = 2.0 * torch.sqrt(torch.clamp(score.gather(0, best[None]) + 1.0,
+                                     min=1e-30))               # [1, B]
+    A = R - R.transpose(0, 1)
+    w = torch.stack([A[2, 1], A[0, 2], A[1, 0]])
+    num = torch.cat([torch.cat([torch.zeros_like(tr)[None], w[None]], 1),
+                     torch.cat([w[:, None], R + R.transpose(0, 1)], 1)])
+    row = num.gather(0, best[None, None].expand(1, 4, B))[0]  # [4, B]
+    pick = torch.arange(4, device=R.device)[:, None] == best[None]
+    q = torch.where(pick, 0.25 * s, row / s)
+    return q / torch.sqrt((q * q).sum(0))
+
+
+def _fk_subs(cc: _Consts, x, want_jac):
+    """Per-system kinematics at state x [n, B]: None for the joint kind,
+    else {"p", "quat" (posorn), "J6" (when want_jac)}."""
+    out = []
+    for sc in cc.subs:
+        if sc.kind == "joint":
+            out.append(None)
+            continue
+        p, R, zs, os_ = _fk_walk(sc, x[:cc.dof])
+        p_ee, R_ee = _walk_tip(sc, p, R)
+        d = {"p": p_ee}
+        if want_jac:
+            d["J6"] = _walk_jac(sc, zs, os_, p_ee)
+        if sc.kind == "posorn":
+            d["quat"] = _mat_to_quat_soa(R_ee)
+        out.append(d)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# keypoint residuals + Gauss-Newton terms at one static step
+# ---------------------------------------------------------------------------
+
+def _posorn_residual_soa(sc: _SubC, kp: dict, fkd: dict):
+    """Position + orientation residual [6, B]: r_p = p* - p,
+    r_o = -2 E(q*) logMap(q*, q), with the optional dead zones."""
+    c = sc.car_dim
+    r_p = kp["mu"][:c] - fkd["p"]
+    lm = _q_log_map(kp["q_unit"], kp["q_zero"], fkd["quat"])
+    r_o = -2.0 * _mv(kp["E"], lm)
+    radius = kp["radius"]
+    if radius != 0.0:
+        nrm = torch.sqrt((r_p * r_p).sum(0))
+        safe = torch.where(nrm == 0, torch.ones_like(nrm), nrm)
+        r_p = torch.where(nrm <= radius, torch.zeros_like(r_p),
+                          r_p / safe * (nrm - radius))
+    if any(v != 0.0 for v in kp["thresh"]):
+        th = torch.tensor(kp["thresh"], dtype=r_o.dtype, device=r_o.device)[:, None]
+        r_o = torch.where(r_o.abs() <= th, torch.zeros_like(r_o),
+                          r_o - torch.sign(r_o) * th)
+    return torch.cat([r_p, r_o])
+
+
+def _kp_residual(sc: _SubC, kp: dict, fkd, x):
+    """Residual e [nq, B] of one keypoint at its step."""
+    if sc.kind == "joint":
+        return kp["mu"] - x[:sc.n]          # unguarded Euclidean residual
+    if sc.kind == "point":
+        return kp["mu"] - fkd["p"][:sc.car_dim]
+    e = _posorn_residual_soa(sc, kp, fkd)
+    # zero-state guard over the pos/orn forward map
+    zero_state = (fkd["p"] == 0).all(0) & (fkd["quat"] == 0).all(0)
+    return torch.where(zero_state, torch.zeros_like(e), e)
+
+
+def _kp_terms_at(cc: _Consts, k: int, x, want_grads: bool):
+    """(cost [B], gx [n, B], Gxx [n, n, B]) summed over the keypoints at
+    step k: cost = e^T P e, gx = J^T P e, Gxx = J^T P J. gx/Gxx are None
+    when want_grads is False."""
+    entries = cc.kp_at[k]
+    need_fk = any(cc.subs[i].kind != "joint" for i, _ in entries)
+    fkds = _fk_subs(cc, x, want_grads) if need_fk else [None] * len(cc.subs)
+    cost = gx = Gxx = None
+    for i, kp in entries:
+        sc = cc.subs[i]
+        e = _kp_residual(sc, kp, fkds[i], x)
+        P = kp["prec"]
+        v = _mv(P, e)
+        c = (e * v).sum(0)
+        cost = c if cost is None else cost + c
+        if not want_grads:
+            continue
+        if sc.kind == "joint":               # J = I
+            gs, Gs = v, P[..., None].expand(-1, -1, e.shape[-1])
+        else:
+            rows = 6 if sc.kind == "posorn" else sc.car_dim
+            J = fkds[i]["J6"][:rows]         # [nq, dof, B]
+            gs = (J * v[:, None]).sum(0)
+            Gs = (J[:, :, None] * _mm(P, J)[:, None]).sum(0)
+        gx = gs if gx is None else gx + gs
+        Gxx = Gs if Gxx is None else Gxx + Gs
+    return cost, gx, Gxx
+
+
+# ---------------------------------------------------------------------------
+# joint-limit penalty over whole trajectories
+# ---------------------------------------------------------------------------
+
+def _limit_terms(sc: _SubC, X):
+    """(Ld, ql) of the quadratic limit penalty over X [.., n, B]."""
+    smax, smin = sc.smax[:, None], sc.smin[:, None]
+    over = X > smax
+    under = X < smin
+    active = (sc.weight[:, None] != 0) & (over | under)
+    zero = torch.zeros_like(X)
+    Ld = torch.where(active, torch.full_like(X, sc.penalty), zero)
+    ql = torch.where(over, smax - X, torch.where(under, smin - X, zero))
+    return Ld, torch.where(active, ql, zero)
+
+
+def _limit_arrays(cc: _Consts, X):
+    """Limit gradient and diagonal Hessian over [H, n, B]: (Lq, L2)."""
+    Lq = torch.zeros_like(X)
+    L2 = torch.zeros_like(X)
+    for sc in cc.subs:
+        if sc.limits_set:
+            Ld, ql = _limit_terms(sc, X)
+            Lq = Lq + Ld * ql
+            L2 = L2 + Ld * Ld
+    return Lq, L2
+
+
+def _limit_cost_full(cc: _Consts, X):
+    """Total limit-penalty cost of a trajectory [H, n, B] -> [B]."""
+    cost = torch.zeros_like(X[0, 0])
+    for sc in cc.subs:
+        if sc.limits_set:
+            Ld, ql = _limit_terms(sc, X)
+            cost = cost + (Ld * ql * ql).sum((0, 1))
+    return cost
+
+
+# ---------------------------------------------------------------------------
+# initial rollout and the static keypoint-step costs
+# ---------------------------------------------------------------------------
+
+def _static_step_costs(cc: _Consts, X, U, cost):
+    """Add the keypoint-residual and control-penalty costs at the keypoint
+    steps to `cost` ([H, n, B], [H-1, m, B] -> [B]). The control penalty
+    enters the cost value only at keypoint steps."""
+    for k in cc.kp_steps:
+        if k < cc.H - 1:
+            for i_sub, _ in cc.kp_at[k]:
+                Rt = cc.subs[i_sub].Rt[:, None]
+                cost = cost + (Rt * U[k] * U[k]).sum(0)
+        kc, _, _ = _kp_terms_at(cc, k, X[k], False)
+        cost = cost + kc
+    return cost
+
+
+def _rollout(cc: _Consts, U0, x0):
+    """Open-loop rollout x_{k+1} = x_k + dt u_k of the initial controls
+    U0 [H-1, m, B] from x0 [n, B] -> (X [H, n, B], cost [B])."""
+    X = torch.empty((cc.H,) + tuple(x0.shape), dtype=x0.dtype, device=x0.device)
+    X[0] = x0
+    for k in range(cc.H - 1):
+        X[k + 1] = X[k] + cc.dt * U0[k]
+    return X, _static_step_costs(cc, X, U0, _limit_cost_full(cc, X))
+
+
+# ---------------------------------------------------------------------------
+# backward sweep
+# ---------------------------------------------------------------------------
+
+def _backward(cc: _Consts, X, U):
+    """Full backward sweep -> (Ks [H-1, n, n, B], ds [H-1, n, B]).
+
+    The limit quadratics stream as per-step diagonals; the keypoint
+    gradients fold into the stage-gradient rows, and the dense keypoint
+    Hessians J^T P J enter only at the inner keypoint steps. The terminal
+    cost-to-go (cost at H-1 with u = 0) is built here, and the sweep runs in
+    `segment_backward`: the CUDA kernel for CUDA tensors, its twin on the CPU.
+    """
+    H = cc.H
+    Lq, L2 = _limit_arrays(cc, X)
+    lx_all = -Lq
+    eye = torch.eye(cc.n, dtype=X.dtype, device=X.device)[..., None]
+    P = eye * L2[H - 1][:, None]
+    p = lx_all[H - 1]
+    if (H - 1) in cc.kp_at:
+        _, gx, gxx = _kp_terms_at(cc, H - 1, X[H - 1], True)
+        p = p - gx
+        P = P + gxx
+    inner = [k for k in cc.kp_steps if k < H - 1]
+    lx = lx_all[:H - 1]
+    if inner:
+        terms = [_kp_terms_at(cc, k, X[k], True) for k in inner]
+        lx = lx.clone()
+        for k, (_, gx_k, _) in zip(inner, terms):
+            lx[k] = lx[k] - gx_k
+        gxx = torch.stack([g for _, _, g in terms])
+    else:
+        gxx = X.new_zeros((0, cc.n, cc.n, X.shape[-1]))
+    return segment_backward(P.contiguous(), p.contiguous(),
+                            L2[:H - 1].contiguous(), lx.contiguous(),
+                            U.contiguous(), gxx.contiguous(), tuple(inner),
+                            cc.dt, cc.Rt, _REG)
+
+
+# ---------------------------------------------------------------------------
+# affine line search: the closed-loop trial dynamics are affine in both x
+# and alpha, so X(alpha) = Xb + alpha Xd and U(alpha) = Ub + alpha Ud from
+# one pass, and each trial is a few whole-array passes with no recursion.
+# ---------------------------------------------------------------------------
+
+def _alpha_schedule(line_search: bool):
+    return [2.0 ** -i for i in range(11)] if line_search else [1.0]
+
+
+def _affine_family(cc: _Consts, Ks, ds, Xref, Uref, x0):
+    """The exact affine trial family: Xb/Xd [H, n, B], Ub/Ud [H-1, m, B],
+    and the per-step ||du||^2 coefficients (a, b, c) [H-1, B] with
+    ||du_k(alpha)||^2 = a_k + 2 alpha b_k + alpha^2 c_k.
+
+    Base (alpha = 0) and direction are carried together as [2, n, B]: the
+    direction's reference state and control are zero, so one product with
+    K serves both."""
+    H = cc.H
+    B = x0.shape[-1]
+    zX = torch.zeros_like(Xref[:-1])
+    ref_x = torch.stack([Xref[:-1], zX], dim=1)            # [H-1, 2, n, B]
+    ref_u = torch.stack([Uref, torch.zeros_like(Uref)], dim=1)
+    Xbd = x0.new_empty((H, 2) + tuple(x0.shape))
+    Xbd[0, 0] = x0
+    Xbd[0, 1] = 0.0
+    DU = x0.new_empty((H - 1, 2, cc.m, B))
+    xbd = Xbd[0]
+    for k in range(H - 1):
+        du = (Ks[k][None] * (xbd - ref_x[k])[:, None]).sum(2)  # [2, m, B]
+        du[1] += ds[k]
+        DU[k] = du
+        xbd = xbd + cc.dt * (du + ref_u[k])
+        Xbd[k + 1] = xbd
+    dub, dud = DU[:, 0], DU[:, 1]
+    return (Xbd[:, 0], Xbd[:, 1], Uref + dub, dud, (dub * dub).sum(1),
+            (dub * dud).sum(1), (dud * dud).sum(1))
+
+
+def _run_trials_affine(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0,
+                       inactive):
+    """Backtracking over alpha = 1, 1/2, ..., 2^-10 on the affine family:
+    the first passing alpha is adopted per lane, the last trial on
+    floor-out; the walk stops once every lane has accepted. Inactive lanes
+    start as accepted. -> (Xn, Un, cost, sum ||du||, alpha)."""
+    Xb, Xd, Ub, Ud, qa, qb, qc = _affine_family(cc, Ks, ds, X, U, x0)
+    H = cc.H
+
+    def trial(a):
+        Xa = Xb + a * Xd
+        cost = _limit_cost_full(cc, Xa)
+        for k in cc.kp_steps:
+            if k < H - 1:
+                uk = Ub[k] + a * Ud[k]
+                for i_sub, _ in cc.kp_at[k]:
+                    cost = cost + (cc.subs[i_sub].Rt[:, None] * uk * uk).sum(0)
+            kc, _, _ = _kp_terms_at(cc, k, Xa[k], False)
+            cost = cost + kc
+        # ||du_k(alpha)||^2 >= 0 exactly; clamp the rounding tail
+        du = torch.sqrt(torch.clamp(qa + (2.0 * a) * qb + (a * a) * qc,
+                                    min=0.0)).sum(0)
+        return cost, du
+
+    accepted = inactive.clone()
+    cost = cost0
+    du_acc = torch.zeros_like(cost0)
+    alpha = torch.ones_like(cost0)
+    for a in a_sched:
+        if bool(accepted.all()):
+            break
+        ct, dut = trial(a)
+        ok = (ct < cost0) & ~torch.isnan(ct)
+        take = ~accepted
+        cost = torch.where(take, ct, cost)
+        du_acc = torch.where(take, dut, du_acc)
+        alpha = torch.where(take, torch.full_like(alpha, a), alpha)
+        accepted = accepted | ok
+    Xn = Xb + alpha * Xd
+    Un = Ub + alpha * Ud
+    return Xn, Un, cost, du_acc, alpha
+
+
+# ---------------------------------------------------------------------------
+# the solve
+# ---------------------------------------------------------------------------
+
+def _fx_traj(cc: _Consts, X):
+    """fX [B, H, nt] of a trajectory: the horizon flattens into the lane
+    axis so the FK walk runs once over H*B lanes."""
+    H, n = cc.H, cc.n
+    B = X.shape[-1]
+    x_flat = X.permute(1, 0, 2).reshape(n, H * B)
+    comps = []
+    for sc, fkd in zip(cc.subs, _fk_subs(cc, x_flat, False)):
+        if sc.kind == "joint":
+            comps.append(x_flat[:sc.n])
+        elif sc.kind == "point":
+            comps.append(fkd["p"][:sc.car_dim])
+        else:
+            comps += [fkd["p"], fkd["quat"]]
+    fx = torch.cat(comps)
+    return fx.reshape(fx.shape[0], H, B).permute(2, 1, 0)
+
+
+def make_fleet_solver(spec: Spec, nb_iter: int, line_search: bool = True,
+                      early_stop: bool = True, overrides=(),
+                      backward: str = "auto", ls: str = "auto",
+                      record: bool = False):
+    """Build a lane-major fleet solve: (x0s [B, n], U0s [B, H-1, nu]) ->
+    ILQRResult with a leading scenario axis, on the spec's device.
+
+    backward: 'auto' only (the CUDA kernel on the card, its twin on the
+    CPU). ls: 'auto' or 'affine' (the scan-free affine trials). Keypoint
+    overrides, `record=True` and ls='scan' are not ported yet.
+    """
+    if backward != "auto":
+        raise ValueError(f"backward must be 'auto' in the port, got {backward!r}")
+    if ls not in ("auto", "affine", "scan"):
+        raise ValueError(f"ls must be auto/affine/scan, got {ls!r}")
+    if ls == "scan":
+        raise NotImplementedError(
+            "ls='scan' (sequential re-rollouts) is not ported yet (ROADMAP "
+            "Queue 1 item 7, with the time-optimal kinds that need it)")
+    if tuple(overrides):
+        raise NotImplementedError(
+            f"keypoint overrides {tuple(overrides)} are not ported yet "
+            f"(ROADMAP slice 2)")
+    if record:
+        raise NotImplementedError("record=True is not ported yet (ROADMAP "
+                                  "slice 2)")
+    cc = _Consts(spec)
+    n, m, H = cc.n, cc.m, cc.H
+    a_sched = _alpha_schedule(line_search)
+
+    def solve(x0s, U0s):
+        x0 = torch.as_tensor(x0s, dtype=cc.dtype, device=cc.device).T.contiguous()
+        U0 = torch.as_tensor(U0s, dtype=cc.dtype,
+                             device=cc.device).permute(1, 2, 0).contiguous()
+        B = x0.shape[-1]
+        X, cost = _rollout(cc, U0, x0)
+        U = U0
+        Ks = x0.new_zeros((H - 1, m, n, B))
+        ds = x0.new_zeros((H - 1, m, B))
+        it = torch.zeros(B, dtype=torch.int32, device=cc.device)
+        done = torch.zeros(B, dtype=torch.bool, device=cc.device)
+        alpha = torch.ones_like(cost)
+        while True:
+            active = ~done & (it < nb_iter)
+            if not bool(active.any()):
+                break
+            Ks_n, ds_n = _backward(cc, X, U)
+            Xn, Un, costn, du_acc, alpha_n = _run_trials_affine(
+                cc, a_sched, X, U, cost, Ks_n, ds_n, x0, ~active)
+            new_done = done
+            if early_stop:
+                new_done = done | ((alpha_n * torch.sqrt(du_acc) < 1e-3)
+                                   & (costn < 1e-3))
+            X = torch.where(active, Xn, X)
+            U = torch.where(active, Un, U)
+            cost = torch.where(active, costn, cost)
+            Ks = torch.where(active, Ks_n, Ks)
+            ds = torch.where(active, ds_n, ds)
+            it = torch.where(active, it + 1, it)
+            done = torch.where(active, new_done, done)
+            alpha = torch.where(active, alpha_n, alpha)
+        return ILQRResult(
+            X=X.permute(2, 0, 1),
+            fX=_fx_traj(cc, X),
+            U=U.permute(2, 0, 1),
+            Ks=Ks.permute(3, 0, 1, 2),
+            ds=(ds * alpha).permute(2, 0, 1),
+            cost=cost,
+            iterations=it,
+            alpha=alpha,
+        )
+
+    return solve

@@ -1,0 +1,227 @@
+"""Problem specification: the optimal-control problem as a dataclass of
+tensors.
+
+PyTorch counterpart of the JAX package's `systems/spec.py`. Keypoints are
+scattered into dense per-timestep tensors (targets `mu[H, nt]`, precisions
+`prec[H, nQ, nQ]`, presence mask `kp_mask[H]`) on the host at build time.
+
+Kinds of this slice, first order (nb_deriv=1) only:
+  'posorn'  end-effector position + quaternion tracking
+  'joint'   joint-space tracking
+  'point'   end-effector position tracking
+The time-optimal kinds and nb_deriv=2 are ROADMAP Queue 1 item 7; sequential
+composition is item 9.
+"""
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ilqr_planner_torch.models.robot import Robot
+from ilqr_planner_torch.utils.device import resolve_device
+
+__all__ = ["Spec", "make_spec"]
+
+_KIND_CHECK = {
+    "posorn": ("POS_ORN",),
+    "posorn_time": ("POS_ORN_TIME",),
+    "joint": ("JNT",),
+    "joint_time": ("JNT_TIME",),
+    "point": ("POINT",),
+}
+
+_SECOND_SLICE = ("is not ported yet (ROADMAP Queue 1 item 7: fleet "
+                 "2nd-order and time-optimal kinds)")
+
+
+@dataclasses.dataclass
+class Spec:
+    """Dense problem description. mu rows use the forward-map layout of each
+    kind ([p, quat] for posorn), the layout the residual consumes."""
+
+    kind: str
+    nb_deriv: int
+    horizon: int
+    limits_set: bool
+
+    robot: Optional[Robot] = None
+
+    dt: Optional[torch.Tensor] = None          # fixed step
+    mu: Optional[torch.Tensor] = None          # [H, nt]
+    prec: Optional[torch.Tensor] = None        # [H, nQ, nQ]
+    kp_mask: Optional[torch.Tensor] = None     # [H] 0/1
+    pos_radius: Optional[torch.Tensor] = None  # [H] dead-zone radius (posorn)
+    orn_thresh: Optional[torch.Tensor] = None  # [H, 3] per-axis dead zones
+    Rt: Optional[torch.Tensor] = None          # [nu] control penalty diagonal
+    state_min: Optional[torch.Tensor] = None   # [nx]
+    state_max: Optional[torch.Tensor] = None   # [nx]
+    limit_weight: Optional[torch.Tensor] = None  # [nx] 0/1 mask
+    penalty: Optional[torch.Tensor] = None     # scalar, 1 when limits set
+    x0: Optional[torch.Tensor] = None          # [nx]
+    q0: Optional[torch.Tensor] = None          # [dof]
+    dq0: Optional[torch.Tensor] = None         # [dof]
+
+    @property
+    def dof(self) -> int:
+        return self.q0.shape[-1]
+
+    @property
+    def time_optimal(self) -> bool:
+        return self.kind.endswith("_time")
+
+    @property
+    def nx(self) -> int:
+        return self.x0.shape[-1]
+
+    @property
+    def nu(self) -> int:
+        return self.Rt.shape[-1]
+
+    @property
+    def nt(self) -> int:
+        return self.mu.shape[-1]
+
+    @property
+    def nq_var(self) -> int:
+        """Residual dimension (a quaternion's 4 entries give 3)."""
+        return self.prec.shape[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.x0.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.x0.dtype
+
+    def tensors(self) -> dict:
+        """Every tensor leaf by name, the robot's chain under 'chain.*'."""
+        out = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+               if isinstance(getattr(self, f.name), torch.Tensor)}
+        if self.robot is not None:
+            for f in dataclasses.fields(self.robot.chain):
+                out[f"chain.{f.name}"] = getattr(self.robot.chain, f.name)
+        return out
+
+
+def _limit_arrays(dof, nb_deriv, q_max, q_min, dq_max, dq_min, time_axis, dtype):
+    """state_min/max and the limit weight mask, with the time kinds'
+    zero-padded, zero-weighted time slot."""
+    limits_set = q_max is not None
+    nx = dof * nb_deriv + (1 if time_axis else 0)
+    if not limits_set:
+        zeros = np.zeros(nx)
+        return False, zeros, zeros, np.zeros(nx), 0.0
+    q_max = np.asarray(q_max, float)
+    q_min = np.asarray(q_min, float)
+    weight = np.ones(dof * nb_deriv)
+    if nb_deriv == 1:
+        smax, smin = q_max, q_min
+    else:
+        if dq_max is None:
+            dq_max = np.zeros(dof)
+            dq_min = np.zeros(dof)
+        dq_max = np.asarray(dq_max, float)
+        dq_min = np.asarray(dq_min, float)
+        smax = np.concatenate([q_max, dq_max])
+        smin = np.concatenate([q_min, dq_min])
+        if np.allclose(dq_max, dq_min):
+            weight[dof:] = 0.0  # velocity block masked out
+    if time_axis:
+        smax = np.concatenate([smax, [0.0]])
+        smin = np.concatenate([smin, [0.0]])
+        weight = np.concatenate([weight, [0.0]])
+    return True, smax.astype(dtype), smin.astype(dtype), weight.astype(dtype), 1.0
+
+
+def make_spec(kind: str, robot: Robot, keypoints, Rt_diag, horizon: int,
+              nb_deriv: int, dt: float = None, q0=None, dq0=None, q_max=None,
+              q_min=None, dq_max=None, dq_min=None, dtype=torch.float64,
+              device=None) -> Spec:
+    """Build a dense Spec for one system kind on `device` (None: CUDA).
+
+    Validates keypoint tags and orders and builds the limit arrays and the
+    initial state like the JAX `make_spec`. The robot's chain is moved to the
+    spec's device.
+    """
+    if kind not in _KIND_CHECK:
+        raise ValueError(f"unknown system kind {kind!r}")
+    if kind.endswith("_time"):
+        raise NotImplementedError(f"kind {kind!r} {_SECOND_SLICE}")
+    if nb_deriv != 1:
+        raise NotImplementedError(f"nb_deriv={nb_deriv} {_SECOND_SLICE}")
+    if robot.kind != "chain":
+        raise NotImplementedError(f"robot kind {robot.kind!r} is not ported yet")
+    for kp in keypoints:
+        if kp.TAG not in _KIND_CHECK[kind]:
+            raise ValueError(f"[{kind}] Wrong keypoint type: got {kp.TAG}")
+        if kp.order != nb_deriv:
+            raise ValueError(
+                f"[{kind}] Wrong keypoint order (nb_deriv): expecting "
+                f"{nb_deriv} got {kp.order}")
+    if dt is None:
+        raise ValueError("dt is required for non-time-optimal systems")
+    dev = resolve_device(device)
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
+    dof = robot.dof
+    q0 = np.zeros(dof) if q0 is None else np.asarray(q0, float)
+    dq0 = np.zeros(dof) if dq0 is None else np.asarray(dq0, float)
+
+    if kind == "joint":
+        nt = dof
+    elif kind == "posorn":
+        nt = robot.nb_car_dim + 4
+    else:  # point
+        nt = robot.nb_car_dim
+    nq = nt - 1 if kind == "posorn" else nt
+
+    H = horizon
+    mu = np.zeros((H, nt), dtype=np_dtype)
+    prec = np.zeros((H, nq, nq), dtype=np_dtype)
+    kp_mask = np.zeros(H, dtype=np_dtype)
+    pos_radius = np.zeros(H, dtype=np_dtype)
+    orn_thresh = np.zeros((H, 3), dtype=np_dtype)
+    for kp in keypoints:
+        k = kp.timestep
+        if not (0 <= k < H):
+            raise ValueError(f"keypoint timestep {k} outside horizon {H}")
+        mu[k] = kp.fx_state()
+        prec[k] = kp.precision
+        kp_mask[k] = 1.0
+        if hasattr(kp, "pos_radius"):
+            pos_radius[k] = kp.pos_radius
+            orn_thresh[k] = kp.orn_thresh
+
+    limits_set, smax, smin, weight, penalty = _limit_arrays(
+        dof, nb_deriv, q_max, q_min, dq_max, dq_min, False, np_dtype)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np_dtype), device=dev)
+
+    chain = robot.chain
+    robot = dataclasses.replace(robot, chain=dataclasses.replace(
+        chain, **{f.name: getattr(chain, f.name).to(dev)
+                  for f in dataclasses.fields(chain)}))
+    return Spec(
+        kind=kind,
+        nb_deriv=nb_deriv,
+        horizon=H,
+        limits_set=limits_set,
+        robot=robot,
+        dt=t(dt),
+        mu=t(mu),
+        prec=t(prec),
+        kp_mask=t(kp_mask),
+        pos_radius=t(pos_radius),
+        orn_thresh=t(orn_thresh),
+        Rt=t(np.asarray(Rt_diag, float)),
+        state_min=t(smin),
+        state_max=t(smax),
+        limit_weight=t(weight),
+        penalty=t(penalty),
+        x0=t(q0),
+        q0=t(q0),
+        dq0=t(dq0),
+    )
