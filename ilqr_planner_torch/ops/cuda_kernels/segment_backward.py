@@ -8,20 +8,17 @@ the (P, p) cost-to-go carry in registers. `segment_backward_reference` is
 the same per-step math over [n, n, B] tensors with a Python loop over steps.
 
 The kernel is built with nvcc at first use, from the source in this package,
-into `ilqr_planner_torch/build/`, and loaded with ctypes. `segment_backward`
-runs the twin for CPU tensors and the kernel for CUDA tensors; it never falls
-back from one to the other.
+into `ilqr_planner_torch/build/`, and loaded with ctypes (`nvcc_build`).
+`segment_backward` runs the twin for CPU tensors and the kernel for CUDA
+tensors; it never falls back from one to the other.
 """
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
+
+from ilqr_planner_torch.ops.cuda_kernels import nvcc_build
 
 __all__ = ["segment_backward", "segment_backward_reference", "build",
            "LAUNCHES", "KERNEL_N"]
@@ -31,10 +28,7 @@ LAUNCHES = 0
 # The state width the kernel is instantiated for (the 7-DoF arm).
 KERNEL_N = 7
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "segment_backward.cu"
-BUILD_DIR = _PKG / "build"
-_lib = None
+SOURCE = nvcc_build.CSRC / "segment_backward.cu"
 
 
 # ---------------------------------------------------------------------------
@@ -107,50 +101,15 @@ def segment_backward_reference(P0, p0, L2, lx, U, gxx, kp_steps, dt, Rt,
 # kernel build, checks, launch
 # ---------------------------------------------------------------------------
 
-def _nvcc():
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the segment_backward kernel is built "
-                       "from source on the machine with the card")
+_ENTRIES = {name: [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_void_p]
+            for name in ("segment_backward_f32", "segment_backward_f64")}
 
 
 def build():
     """Compile `csrc/segment_backward.cu` for sm_90a (once per source
     content) -> (path of the shared library, ptxas report)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src).hexdigest()[:12]
-    lib = BUILD_DIR / f"libsegment_backward_{tag}.so"
-    log = BUILD_DIR / f"libsegment_backward_{tag}.ptxas.txt"
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        log.write_text(proc.stderr)
-        os.replace(tmp, lib)
-    return lib, log.read_text() if log.exists() else ""
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        for name in ("segment_backward_f32", "segment_backward_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int,
-                                                    ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return nvcc_build.build(SOURCE)
 
 
 def _check(P0, p0, L2, lx, U, gxx, kp_steps):
@@ -214,8 +173,8 @@ def segment_backward(P0, p0, L2, lx, U, gxx, kp_steps, dt, Rt, reg=1e-6):
     slots, params = _launch_consts(Hm1, tuple(int(k) for k in kp_steps),
                                    float(dt), float(reg),
                                    tuple(float(v) for v in Rt), dtype, dev)
-    fn =(_load().segment_backward_f32 if dtype == torch.float32
-          else _load().segment_backward_f64)
+    lib = nvcc_build.load(SOURCE, _ENTRIES)
+    fn = lib.segment_backward_f32 if dtype == torch.float32 else lib.segment_backward_f64
     with torch.cuda.device(dev):
         err = fn(P0.data_ptr(), p0.data_ptr(), L2.data_ptr(), lx.data_ptr(),
                  U.data_ptr(), gxx.data_ptr(), slots.data_ptr(),

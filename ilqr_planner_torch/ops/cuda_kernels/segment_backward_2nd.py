@@ -1,0 +1,268 @@
+"""Whole-sweep backward pass for the double integrator ('second') and the
+sqrt-dt time-optimal first-order kind ('time1'): CUDA kernel, plain twin,
+wrapper.
+
+PyTorch counterpart of the JAX package's
+`ops/pallas_kernels/segment_backward_2nd.py` (the Pallas TPU kernels
+`segment_backward_pallas_2nd` and `segment_backward_pallas_time1`), whose
+per-step body is the fleet solver's `_q_terms` + `_gains_value`. The kernel
+(`csrc/segment_backward_2nd.cu`) runs all H-1 steps in one launch, one
+thread per scenario lane. `segment_backward_2nd_reference` is the same
+per-step math over [n, n, B] tensors with a Python loop over steps:
+`q_terms` (the Q blocks of the kind's structured A and B), then
+`gains_value` (Gauss-Jordan without pivoting in the JAX package's
+elimination order, and the collapsed value update).
+
+The kernel is built with nvcc at first use (`nvcc_build`). The wrappers run
+the twin for CPU tensors and the kernel for CUDA tensors; they never fall
+back from one to the other.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from ilqr_planner_torch.ops.cuda_kernels import nvcc_build
+
+__all__ = ["segment_backward_2nd", "segment_backward_time1",
+           "segment_backward_2nd_reference", "q_terms", "gains_value",
+           "solve_aug", "build", "LAUNCHES", "KERNEL_WIDTHS"]
+
+# Kernel launches so far, by kind: one per CUDA call of the kind's wrapper.
+LAUNCHES = {"second": 0, "time1": 0}
+# (n, m) each kind is instantiated for: the 7-DoF arm.
+KERNEL_WIDTHS = {"second": (14, 7), "time1": (8, 8)}
+
+SOURCE = nvcc_build.CSRC / "segment_backward_2nd.cu"
+
+
+# ---------------------------------------------------------------------------
+# plain twin
+# ---------------------------------------------------------------------------
+
+def q_terms(kind, P, p, l2, lx, u, gxx, dt, b1, Rt):
+    """Pre-gain Q blocks at one step -> (Quu [m, m, B], Qux [m, n, B],
+    Qu [m, B], Qxx [n, n, B], Qx [n, B]).
+
+    'second' (n = 2m): A = I + dt E, B = [b1 I; dt I] with b1 = dt^2 / 2.
+    'time1' (n = m): A = I, B = [[s^2 I, 2 s u_q], [0, 2 s]], s = u[m-1].
+    P [n, n, B] (symmetric), p [n, B], l2/lx [n, B], u [m, B], gxx the dense
+    keypoint Hessian [n, n, B] or None; dt, b1 scalars and Rt [m, 1] in the
+    working dtype.
+    """
+    n, m = P.shape[0], u.shape[0]
+    eye_m = torch.eye(m, dtype=P.dtype, device=P.device)[:, :, None]
+    stage = torch.diag_embed(l2.T).permute(1, 2, 0)
+    if gxx is not None:
+        stage = stage + gxx
+    if kind == "second":
+        dof = m
+        # P A: dt * (q-columns) added into the dq-columns
+        PA = torch.cat([P[:, :dof], P[:, dof:] + dt * P[:, :dof]], dim=1)
+        Qux = b1 * PA[:dof] + dt * PA[dof:]
+        PB = b1 * P[:, :dof] + dt * P[:, dof:]                   # [n, m, B]
+        Quu = b1 * PB[:dof] + dt * PB[dof:] + eye_m * Rt[:, :, None]
+        Qu = Rt * u + (b1 * p[:dof] + dt * p[dof:])
+        Qx = lx + torch.cat([p[:dof], p[dof:] + dt * p[:dof]])
+        # A^T (P A): dt * (q-rows of PA) added into the dq-rows
+        Qxx = stage + torch.cat([PA[:dof], PA[dof:] + dt * PA[:dof]])
+        return Quu, Qux, Qu, Qxx, Qx
+    if kind != "time1":
+        raise ValueError(f"kind must be 'second' or 'time1', got {kind!r}")
+    dof = m - 1
+    s = u[m - 1]
+    dtk = s * s
+    h = 2.0 * s
+    g = h * u[:dof]                                              # [dof, B]
+
+    def btm(M):
+        """B^T M for M [n, c, B]."""
+        last = (g[:, None] * M[:dof]).sum(0) + h * M[n - 1]
+        return torch.cat([dtk * M[:dof], last[None]])
+
+    PB = torch.cat([dtk * P[:, :dof],
+                    ((P[:, :dof] * g[None]).sum(1) + P[:, n - 1] * h)[:, None]],
+                   dim=1)                                        # [n, m, B]
+    Qux = btm(P)
+    Quu = btm(PB) + eye_m * Rt[:, :, None]
+    Btp = torch.cat([dtk * p[:dof], ((g * p[:dof]).sum(0) + h * p[n - 1])[None]])
+    Qu = Rt * u + Btp
+    return Quu, Qux, Qu, P + stage, lx + p
+
+
+def solve_aug(M, R):
+    """Gauss-Jordan without pivoting: M^-1 R for M [m, m, B], R [m, c, B],
+    eliminating pivot by pivot in the JAX package's order."""
+    A, X = M.clone(), R.clone()
+    m = A.shape[0]
+    for k in range(m):
+        piv = 1.0 / A[k, k]
+        A[k] = A[k] * piv
+        X[k] = X[k] * piv
+        fac = A[:, k].clone()
+        fac[k] = 0.0                      # row k keeps its values
+        A = A - fac[:, None] * A[k][None]
+        X = X - fac[:, None] * X[k][None]
+    return X
+
+
+def gains_value(Quu, Qux, Qu, Qxx, Qx, reg):
+    """Regularized gains and the collapsed value update -> (P1 [n, n, B],
+    p1 [n, B], K [m, n, B], d [m, B]): with (Quu + reg I)[S | s] = [Qux | Qu],
+    K = -S, d = -s, P1 = Qxx + Qux^T K - reg K^T K (upper triangle,
+    mirrored) and p1 = Qx + Qux^T d - reg K^T d."""
+    m, n = Qux.shape[0], Qux.shape[1]
+    eye_m = torch.eye(m, dtype=Quu.dtype, device=Quu.device)[:, :, None]
+    sol = solve_aug(Quu + reg * eye_m, torch.cat([Qux, Qu[:, None]], dim=1))
+    K, d = -sol[:, :n], -sol[:, n]
+    P1 = (Qxx + (Qux[:, :, None] * K[:, None]).sum(0)
+          - reg * (K[:, :, None] * K[:, None]).sum(0))
+    p1 = Qx + (Qux * d[:, None]).sum(0) - reg * (K * d[:, None]).sum(0)
+    return _mirror_upper(P1), p1, K, d
+
+
+def _mirror_upper(P):
+    lower = torch.ones(P.shape[:2], dtype=torch.bool, device=P.device).tril(-1)
+    return torch.where(lower[:, :, None], P.transpose(0, 1), P)
+
+
+def _params(kind, dt, Rt, reg, dtype, dev):
+    """(dt, dt^2 / 2, reg, Rt...) rounded once to the working dtype: the
+    kernel's parameter vector ('time1' has no fixed step: dt = 0)."""
+    dt = 0.0 if kind == "time1" else float(dt)
+    return torch.tensor([dt, 0.5 * dt * dt, float(reg), *[float(v) for v in Rt]],
+                        dtype=dtype, device=dev)
+
+
+def segment_backward_2nd_reference(kind, P0, p0, L2, lx, U, gxx, kp_steps, dt,
+                                   Rt, reg=1e-6):
+    """Full backward sweep -> (Ks [H-1, m, n, B], ds [H-1, m, B]).
+
+    P0 [n, n, B], p0 [n, B]: terminal cost-to-go (upper triangle read).
+    L2/lx [H-1, n, B]: the limit diagonal and the stage gradient (keypoint
+    -J^T P e folded in); U [H-1, m, B] the controls. gxx [n_kp, n, n, B]:
+    dense keypoint Hessians at the steps `kp_steps`. dt is unused for
+    'time1'.
+    """
+    n, _, B = P0.shape
+    Hm1, m = U.shape[0], U.shape[1]
+    params = _params(kind, dt, Rt, reg, P0.dtype, P0.device)
+    dt_t, b1, reg_t, Rt_t = params[0], params[1], params[2], params[3:, None]
+    slot = {int(k): i for i, k in enumerate(kp_steps)}
+    P, p = _mirror_upper(P0), p0
+    Ks = P0.new_empty((Hm1, m, n, B))
+    ds = P0.new_empty((Hm1, m, B))
+    for t in range(Hm1 - 1, -1, -1):
+        g = gxx[slot[t]] if t in slot else None
+        Q = q_terms(kind, P, p, L2[t], lx[t], U[t], g, dt_t, b1, Rt_t)
+        P, p, Ks[t], ds[t] = gains_value(*Q, reg_t)
+    return Ks, ds
+
+
+# ---------------------------------------------------------------------------
+# kernel build, checks, launch
+# ---------------------------------------------------------------------------
+
+_ENTRIES = {f"segment_backward_{kind}_{tag}":
+            [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            for kind in KERNEL_WIDTHS for tag in ("f32", "f64")}
+
+
+def build():
+    """Compile `csrc/segment_backward_2nd.cu` for sm_90a (once per source
+    content) -> (path of the shared library, ptxas report)."""
+    return nvcc_build.build(SOURCE)
+
+
+def _check(kind, P0, p0, L2, lx, U, gxx, kp_steps):
+    """Raise on anything the kernel does not take. Needs no card."""
+    n, m = P0.shape[0], U.shape[1]
+    if (n, m) != KERNEL_WIDTHS[kind]:
+        raise ValueError(
+            f"segment_backward_2nd kernel '{kind}' is built for (n, m) = "
+            f"{KERNEL_WIDTHS[kind]}; got ({n}, {m}) (other widths: ROADMAP "
+            f"Queue 2)")
+    if P0.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"segment_backward_2nd kernel takes float32/float64, "
+                        f"got {P0.dtype}")
+    B = P0.shape[-1]
+    Hm1 = U.shape[0]
+    shapes = {"P0": (P0, (n, n, B)), "p0": (p0, (n, B)),
+              "L2": (L2, (Hm1, n, B)), "lx": (lx, (Hm1, n, B)),
+              "U": (U, (Hm1, m, B)), "gxx": (gxx, (len(kp_steps), n, n, B))}
+    for name, (a, shape) in shapes.items():
+        if a.device.type != "cuda" or a.device != P0.device:
+            raise ValueError(f"segment_backward_2nd kernel: {name} must be a "
+                             f"CUDA tensor on {P0.device}, got {a.device}")
+        if a.dtype != P0.dtype:
+            raise TypeError(f"segment_backward_2nd kernel: {name} is {a.dtype}, "
+                            f"P0 is {P0.dtype}")
+        if tuple(a.shape) != shape:
+            raise ValueError(f"segment_backward_2nd kernel: {name} has shape "
+                             f"{tuple(a.shape)}, expected {shape}")
+        if not a.is_contiguous():
+            raise ValueError(f"segment_backward_2nd kernel: {name} is not "
+                             f"contiguous")
+    if any(not 0 <= int(k) < Hm1 for k in kp_steps):
+        raise ValueError(f"keypoint steps {tuple(kp_steps)} outside [0, {Hm1})")
+
+
+@functools.lru_cache(maxsize=32)
+def _launch_consts(kind, Hm1, kp_steps, dt, reg, Rt, dtype, dev):
+    """The kernel's device constants, copied to the card once per solver
+    setting: the slot map [Hm1] (-1 off keypoints) and the parameters."""
+    slots = [-1] * Hm1
+    for i, k in enumerate(kp_steps):
+        slots[k] = i
+    return (torch.tensor(slots, dtype=torch.int32, device=dev),
+            _params(kind, dt, Rt, reg, dtype, dev))
+
+
+def _sweep(kind, P0, p0, L2, lx, U, gxx, kp_steps, dt, Rt, reg):
+    devices = {a.device for a in (P0, p0, L2, lx, U, gxx)}
+    if len(devices) != 1:
+        raise ValueError(f"segment_backward_2nd: the arrays lie on more than "
+                         f"one device: {sorted(map(str, devices))}")
+    if P0.device.type == "cpu":
+        return segment_backward_2nd_reference(kind, P0, p0, L2, lx, U, gxx,
+                                              kp_steps, dt, Rt, reg)
+    _check(kind, P0, p0, L2, lx, U, gxx, kp_steps)
+    n, _, B = P0.shape
+    Hm1, m = U.shape[0], U.shape[1]
+    dtype, dev = P0.dtype, P0.device
+    Ks = torch.empty((Hm1, m, n, B), dtype=dtype, device=dev)
+    ds = torch.empty((Hm1, m, B), dtype=dtype, device=dev)
+    if B == 0 or Hm1 == 0:
+        return Ks, ds
+    slots, params = _launch_consts(kind, Hm1, tuple(int(k) for k in kp_steps),
+                                   None if dt is None else float(dt),
+                                   float(reg), tuple(float(v) for v in Rt),
+                                   dtype, dev)
+    tag = "f32" if dtype == torch.float32 else "f64"
+    fn = getattr(nvcc_build.load(SOURCE, _ENTRIES),
+                 f"segment_backward_{kind}_{tag}")
+    with torch.cuda.device(dev):
+        err = fn(P0.data_ptr(), p0.data_ptr(), L2.data_ptr(), lx.data_ptr(),
+                 U.data_ptr(), gxx.data_ptr(), slots.data_ptr(),
+                 params.data_ptr(), Ks.data_ptr(), ds.data_ptr(), Hm1, B,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"segment_backward_2nd kernel '{kind}' launch "
+                           f"failed: CUDA error {err}")
+    LAUNCHES[kind] += 1
+    return Ks, ds
+
+
+def segment_backward_2nd(P0, p0, L2, lx, U, gxx, kp_steps, dt, Rt, reg=1e-6):
+    """Double-integrator sweep -> (Ks [H-1, m, n, B], ds [H-1, m, B]);
+    arguments as `segment_backward_2nd_reference`. CPU tensors run the twin;
+    CUDA tensors launch the kernel (n = 14, m = 7, float32 or float64)."""
+    return _sweep("second", P0, p0, L2, lx, U, gxx, kp_steps, dt, Rt, reg)
+
+
+def segment_backward_time1(P0, p0, L2, lx, U, gxx, kp_steps, Rt, reg=1e-6):
+    """Time-optimal first-order sweep (n = m = dof + 1, the step durations
+    s^2 read from U); CPU tensors run the twin, CUDA tensors launch the
+    kernel (n = m = 8, float32 or float64)."""
+    return _sweep("time1", P0, p0, L2, lx, U, gxx, kp_steps, None, Rt, reg)

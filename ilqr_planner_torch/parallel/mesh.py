@@ -23,12 +23,18 @@ _SLICE_2 = "is not ported yet (ROADMAP slice 2)"
 
 def _fleet_x0s(spec: Spec, overrides, U0s):
     """Initial-state lanes [B, n]: the x0/q0 override when given, else the
-    spec's own x0 broadcast over the batch."""
+    spec's own x0 broadcast over the batch. A state has n columns: [q],
+    [q, dq] (double integrator) or [q, t] (time-optimal)."""
     x0s = overrides.get("x0", overrides.get("q0"))
     if x0s is None:
         B = U0s.shape[0]
         return spec.x0.expand(B, -1)
-    return torch.as_tensor(x0s, dtype=spec.dtype, device=spec.device)
+    x0s = torch.as_tensor(x0s, dtype=spec.dtype, device=spec.device)
+    if x0s.shape[-1] != spec.nx:
+        raise ValueError(f"initial states need {spec.nx} columns for kind "
+                         f"{spec.kind!r} at nb_deriv={spec.nb_deriv}; got "
+                         f"{tuple(x0s.shape)} (pass 'x0')")
+    return x0s
 
 
 # Built-solver memo, LRU-bounded: a long-lived service sweeping many

@@ -1,4 +1,4 @@
-"""Lane-major (struct-of-arrays) fleet solver, first-order slice.
+"""Lane-major (struct-of-arrays) fleet solver.
 
 PyTorch counterpart of the JAX package's `solvers/fleet.py`. The scenario
 batch B is the TRAILING axis of every tensor, so on the card thread b reads
@@ -8,17 +8,23 @@ JAX package's trace-time lists of [B] vectors. Multiplying or adding the
 exact zeros and ones that the JAX lists folded away leaves every value as it
 was, so the only numerical difference is the order of the sums (~1 ulp).
 
-Per iteration: the backward sweep (`_backward`: the CUDA kernel
-`ops/cuda_kernels/segment_backward.py` on the card, its plain twin on the
-CPU), then the affine line-search family (`_affine_family`, one pass over
-the horizon), then the scan-free trials alpha = 1, 1/2, ..., 2^-10 with
-early exit once every lane has accepted (`_run_trials_affine`). Lanes freeze
-one by one (early stop alpha sqrt(sum ||du||) < 1e-3 and cost < 1e-3, or
-the iteration budget); the loop ends when every lane is frozen.
+Per iteration: the backward sweep (`_backward`: a CUDA kernel on the card,
+its plain twin on the CPU: `ops/cuda_kernels/segment_backward.py` for first
+order, `ops/cuda_kernels/segment_backward_2nd.py` for the double integrator
+and the time-optimal kind), then the line search over alpha = 1, 1/2, ...,
+2^-10 with early exit once every lane has accepted. The LTI kinds walk it
+on the affine trial family (`_affine_family`, `_run_trials_affine`: one
+pass over the horizon, then scan-free trials); the time-optimal kinds, whose
+B depends on u, re-roll each trial (`_run_trials`): on the card every
+closed-loop rollout of theirs, the initial one included, is one launch of
+`ops/cuda_kernels/rollout_time1.py`. Lanes freeze one
+by one (early stop alpha sqrt(sum ||du||) < 1e-3 and cost < 1e-3, or the
+iteration budget); the loop ends when every lane is frozen.
 
-Scope of this slice: kinds 'posorn', 'joint', 'point' at nb_deriv 1 on a
-chain robot without an object frame, no per-scenario keypoint overrides,
-affine line search. The rest is ROADMAP Queue 1 items 7-9 and slice 2.
+Scope: kinds 'posorn', 'joint', 'point' at nb_deriv 1 and 2 and
+'posorn_time', 'joint_time' at nb_deriv 1, on a chain robot without an
+object frame, no per-scenario keypoint overrides. The rest is ROADMAP
+Queue 1 items 8-9 and slice 2.
 """
 
 import math
@@ -26,20 +32,29 @@ import math
 import numpy as np
 import torch
 
+from ilqr_planner_torch.ops.cuda_kernels.rollout_time1 import rollout_time1
 from ilqr_planner_torch.ops.cuda_kernels.segment_backward import segment_backward
+from ilqr_planner_torch.ops.cuda_kernels.segment_backward_2nd import (
+    segment_backward_2nd, segment_backward_time1)
 from ilqr_planner_torch.solvers.ilqr import ILQRResult
 from ilqr_planner_torch.systems.spec import Spec
 
-__all__ = ["make_fleet_solver", "fleet_supported"]
+__all__ = ["make_fleet_solver", "fleet_supported", "TRIALS"]
 
 _REG = 1e-6  # gain-elimination ridge
+
+# Line-search trials run by fleet solves so far (each backward sweep is one
+# iteration of the lane with the most).
+TRIALS = 0
 
 
 def fleet_supported(spec: Spec) -> bool:
     """True when this spec is in the port's fleet scope."""
-    return (spec.kind in ("posorn", "joint", "point") and spec.nb_deriv == 1
-            and spec.robot is not None and spec.robot.kind == "chain"
-            and spec.robot.frame is None)
+    if spec.robot is None or spec.robot.kind != "chain" or spec.robot.frame is not None:
+        return False
+    if spec.kind in ("posorn", "joint", "point"):
+        return spec.nb_deriv in (1, 2)
+    return spec.kind in ("posorn_time", "joint_time") and spec.nb_deriv == 1
 
 
 # ---------------------------------------------------------------------------
@@ -51,6 +66,8 @@ class _SubC:
 
     def __init__(self, spec: Spec):
         self.kind = spec.kind
+        self.nb_deriv = spec.nb_deriv
+        self.time = spec.time_optimal
         self.n = spec.nx
         self.dof = spec.dof
         self.nt = spec.nt
@@ -96,13 +113,15 @@ class _SubC:
             kp = {"k": int(k), "mu": t(mu[k])[:, None], "prec": t(prec[k]),
                   "radius": float(radius[k]),
                   "thresh": [float(v) for v in thresh[k]]}
-            if self.kind == "posorn":
-                # target quaternion (raw, for E) and its unit version (the
-                # log-map base, normalized in float64 like the JAX package)
+            if self.kind.startswith("posorn"):
+                # the target quaternion as (raw, unit, all-zero): the raw
+                # entries build E and the transport distance, the unit one
+                # (normalized in float64 like the JAX package) is the
+                # log-map base
                 q_t = mu[k, self.car_dim:self.car_dim + 4].astype(np.float64)
                 nrm = np.linalg.norm(q_t)
-                kp["q_zero"] = bool(np.all(q_t == 0))
-                kp["q_unit"] = t(q_t / (nrm if nrm > 0 else 1.0))[:, None]
+                kp["q"] = (t(q_t)[:, None], t(q_t / (nrm if nrm > 0 else 1.0))[:, None],
+                           bool(np.all(q_t == 0)))
                 w, x, y, z = q_t
                 kp["E"] = t([[-x, w, -z, y], [-y, z, w, -x], [-z, -y, x, w]])
             self.kp.append(kp)
@@ -115,18 +134,21 @@ class _Consts:
     def __init__(self, spec: Spec):
         if not fleet_supported(spec):
             raise NotImplementedError(
-                f"fleet scope of this slice: posorn/joint/point at nb_deriv 1 "
-                f"on a chain robot without object frame; got kind="
-                f"{spec.kind!r} nb_deriv={spec.nb_deriv} (ROADMAP Queue 1 "
-                f"items 7-9)")
+                f"fleet scope: posorn/joint/point at nb_deriv 1-2 and "
+                f"posorn_time/joint_time at nb_deriv 1, on a chain robot "
+                f"without object frame; got kind={spec.kind!r} "
+                f"nb_deriv={spec.nb_deriv} (ROADMAP Queue 1 items 8-9)")
         self.n = spec.nx
         self.m = spec.nu
         self.dof = spec.dof
+        self.nb_deriv = spec.nb_deriv
+        self.time = spec.time_optimal
         self.H = spec.horizon
         self.dtype = spec.dtype
         self.device = spec.device
         np_dtype = np.dtype(str(spec.dtype).removeprefix("torch."))
-        self.dt = float(np.asarray(spec.dt.cpu().numpy(), np_dtype))
+        self.dt = None if self.time else float(np.asarray(spec.dt.cpu().numpy(),
+                                                          np_dtype))
         self.Rt = [float(v) for v in np.asarray(spec.Rt.cpu().numpy(), np_dtype)]
         self.subs = [_SubC(spec)]
         steps = sorted({k for sc in self.subs for k in sc.kp_steps})
@@ -154,13 +176,20 @@ def _mv(A, v):
 
 
 # ---------------------------------------------------------------------------
-# S^3 ops, lane-major (the zero guards of ops/sd.py)
+# S^3 ops, lane-major (the zero guards of ops/sd.py). A quaternion operand
+# is a triple (raw [4, B|1], unit [4, B|1], all-zero: a [B] mask, or a bool
+# for a constant); at least one operand of each call has lanes.
 # ---------------------------------------------------------------------------
 
 def _q_unit(q):
     """to_unit_norm with the zero guard."""
     n = torch.sqrt((q * q).sum(0))
     return q / torch.where(n > 0, n, torch.ones_like(n))
+
+
+def _q_lanes(q):
+    """The operand triple of a lane quaternion [4, B]."""
+    return q, _q_unit(q), (q == 0).all(0)
 
 
 def _q_distance(n1, n2):
@@ -171,19 +200,41 @@ def _q_distance(n1, n2):
     return torch.where(dclip < 0, ac - math.pi, ac)
 
 
-def _q_log_map(b, b_zero, y):
-    """log_map(base, y) with the zero guards; `b` is the already-unit
-    constant base [4, 1] and `b_zero` whether the raw base was all zero."""
-    if b_zero:
-        return torch.zeros_like(y)
-    yn = _q_unit(y)
+def _q_log_map(base, y):
+    """log_map(base, y) with the zero guards, on operand triples."""
+    _, b, b_zero = base
+    _, yn, y_zero = y
     dot = (b * yn).sum(0)
     temp = yn - dot * b
     tn = torch.sqrt((temp * temp).sum(0))
     dist = _q_distance(b, yn)
     tsafe = torch.where(tn > 0, tn, torch.ones_like(tn))
     out = torch.where(tn == 0, torch.zeros_like(temp), dist * temp / tsafe)
-    return torch.where((y == 0).all(0), torch.zeros_like(out), out)
+    return torch.where(b_zero | y_zero, torch.zeros_like(out), out)
+
+
+def _q_transport(v, b1, b2):
+    """Parallel transport of the tangent v [4, B] from b1 to b2 (operand
+    triples): the squared distance of the RAW entries, with the guards."""
+    d = _q_distance(b1[0], b2[0])
+    d2 = d * d
+    l12 = _q_log_map(b1, b2)
+    l21 = _q_log_map(b2, b1)
+    coef = (l12 * v).sum(0) / torch.where(d2 > 0, d2, torch.ones_like(d2))
+    out = torch.where(d2 == 0, v, v - coef * (l12 + l21))
+    return torch.where(b1[2] | b2[2], v, out)
+
+
+def _dquat_jac(q):
+    """E(q) [3, 4(, B)] (w-first) of a quaternion [4(, B)]."""
+    w, x, y, z = q
+    return torch.stack([torch.stack([-x, w, -z, y]), torch.stack([-y, z, w, -x]),
+                        torch.stack([-z, -y, x, w])])
+
+
+def _quat_rate(quat, w3):
+    """Quaternion rate 0.5 E(q)^T w, [4, B] from quat [4, B], w3 [3, B]."""
+    return 0.5 * (_dquat_jac(quat) * w3[:, None]).sum(0)
 
 
 # ---------------------------------------------------------------------------
@@ -253,21 +304,29 @@ def _mat_to_quat_soa(R):
     return q / torch.sqrt((q * q).sum(0))
 
 
-def _fk_subs(cc: _Consts, x, want_jac):
-    """Per-system kinematics at state x [n, B]: None for the joint kind,
-    else {"p", "quat" (posorn), "J6" (when want_jac)}."""
+def _fk_subs(cc: _Consts, x, want_jac, want_vel=False):
+    """Per-system kinematics at state x [n, B]: None for the joint kinds,
+    else {"p", "quat" (posorn), "J6" (when want_jac or want_vel), "dp", "w",
+    "dquat" (posorn) (when want_vel: J_v dq, J_w dq and the quaternion
+    rate, dq the velocity block of a double-integrator state)}."""
     out = []
     for sc in cc.subs:
-        if sc.kind == "joint":
+        if sc.kind.startswith("joint"):
             out.append(None)
             continue
         p, R, zs, os_ = _fk_walk(sc, x[:cc.dof])
         p_ee, R_ee = _walk_tip(sc, p, R)
         d = {"p": p_ee}
-        if want_jac:
+        if want_jac or want_vel:
             d["J6"] = _walk_jac(sc, zs, os_, p_ee)
-        if sc.kind == "posorn":
+        if sc.kind.startswith("posorn"):
             d["quat"] = _mat_to_quat_soa(R_ee)
+        if want_vel:
+            dq = x[cc.dof:2 * cc.dof]
+            d["dp"] = (d["J6"][:3] * dq[None]).sum(1)
+            d["w"] = (d["J6"][3:] * dq[None]).sum(1)
+            if sc.kind.startswith("posorn"):
+                d["dquat"] = _quat_rate(d["quat"], d["w"])
         out.append(d)
     return out
 
@@ -277,12 +336,14 @@ def _fk_subs(cc: _Consts, x, want_jac):
 # ---------------------------------------------------------------------------
 
 def _posorn_residual_soa(sc: _SubC, kp: dict, fkd: dict):
-    """Position + orientation residual [6, B]: r_p = p* - p,
-    r_o = -2 E(q*) logMap(q*, q), with the optional dead zones."""
+    """Position + orientation residual [6(+6), B]: r_p = p* - p,
+    r_o = -2 E(q*) logMap(q*, q), with the optional dead zones; second
+    order appends dp* - dp and -2 E(q*)(dq* - transport(dquat, q -> q*))."""
     c = sc.car_dim
-    r_p = kp["mu"][:c] - fkd["p"]
-    lm = _q_log_map(kp["q_unit"], kp["q_zero"], fkd["quat"])
-    r_o = -2.0 * _mv(kp["E"], lm)
+    mu = kp["mu"]
+    quat = _q_lanes(fkd["quat"])
+    r_p = mu[:c] - fkd["p"]
+    r_o = -2.0 * _mv(kp["E"], _q_log_map(kp["q"], quat))
     radius = kp["radius"]
     if radius != 0.0:
         nrm = torch.sqrt((r_p * r_p).sum(0))
@@ -293,19 +354,47 @@ def _posorn_residual_soa(sc: _SubC, kp: dict, fkd: dict):
         th = torch.tensor(kp["thresh"], dtype=r_o.dtype, device=r_o.device)[:, None]
         r_o = torch.where(r_o.abs() <= th, torch.zeros_like(r_o),
                           r_o - torch.sign(r_o) * th)
-    return torch.cat([r_p, r_o])
+    parts = [r_p, r_o]
+    if sc.nb_deriv == 2:
+        tv = _q_transport(fkd["dquat"], quat, kp["q"])
+        parts += [mu[c + 4:2 * c + 4] - fkd["dp"],
+                  -2.0 * _mv(kp["E"], mu[2 * c + 4:2 * c + 8] - tv)]
+    return torch.cat(parts)
 
 
 def _kp_residual(sc: _SubC, kp: dict, fkd, x):
     """Residual e [nq, B] of one keypoint at its step."""
-    if sc.kind == "joint":
+    if sc.kind.startswith("joint"):
         return kp["mu"] - x[:sc.n]          # unguarded Euclidean residual
     if sc.kind == "point":
-        return kp["mu"] - fkd["p"][:sc.car_dim]
+        fx = fkd["p"][:sc.car_dim]
+        if sc.nb_deriv == 2:
+            fx = torch.cat([fx, fkd["dp"][:sc.car_dim]])
+        return kp["mu"] - fx
     e = _posorn_residual_soa(sc, kp, fkd)
-    # zero-state guard over the pos/orn forward map
-    zero_state = (fkd["p"] == 0).all(0) & (fkd["quat"] == 0).all(0)
-    return torch.where(zero_state, torch.zeros_like(e), e)
+    # zero-state guard over the pos/orn forward map; the time row is
+    # appended unguarded
+    fx = [fkd["p"], fkd["quat"]]
+    if sc.nb_deriv == 2:
+        fx += [fkd["dp"], fkd["dquat"]]
+    zero_state = (torch.cat(fx) == 0).all(0)
+    e = torch.where(zero_state, torch.zeros_like(e), e)
+    if sc.time:
+        e = torch.cat([e, kp["mu"][sc.nt - 1:] - x[sc.n - 1:sc.n]])
+    return e
+
+
+def _kp_jac(sc: _SubC, fkd):
+    """Residual-row Jacobian [nq, n, B]: the geometric rows once per
+    derivative block, and the unit time row of the time kinds."""
+    J6 = fkd["J6"]
+    core = 6 if sc.kind.startswith("posorn") else sc.car_dim
+    J = J6.new_zeros((sc.nq, sc.n, J6.shape[-1]))
+    for b in range(sc.nb_deriv):
+        J[b * core:(b + 1) * core, b * sc.dof:(b + 1) * sc.dof] = J6[:core]
+    if sc.time:
+        J[sc.nq - 1, sc.n - 1] = 1.0
+    return J
 
 
 def _kp_terms_at(cc: _Consts, k: int, x, want_grads: bool):
@@ -313,8 +402,10 @@ def _kp_terms_at(cc: _Consts, k: int, x, want_grads: bool):
     step k: cost = e^T P e, gx = J^T P e, Gxx = J^T P J. gx/Gxx are None
     when want_grads is False."""
     entries = cc.kp_at[k]
-    need_fk = any(cc.subs[i].kind != "joint" for i, _ in entries)
-    fkds = _fk_subs(cc, x, want_grads) if need_fk else [None] * len(cc.subs)
+    need_fk = any(not cc.subs[i].kind.startswith("joint") for i, _ in entries)
+    want_vel = cc.nb_deriv == 2 and need_fk
+    fkds = (_fk_subs(cc, x, want_grads, want_vel) if need_fk
+            else [None] * len(cc.subs))
     cost = gx = Gxx = None
     for i, kp in entries:
         sc = cc.subs[i]
@@ -325,11 +416,10 @@ def _kp_terms_at(cc: _Consts, k: int, x, want_grads: bool):
         cost = c if cost is None else cost + c
         if not want_grads:
             continue
-        if sc.kind == "joint":               # J = I
+        if sc.kind.startswith("joint"):      # J = I
             gs, Gs = v, P[..., None].expand(-1, -1, e.shape[-1])
         else:
-            rows = 6 if sc.kind == "posorn" else sc.car_dim
-            J = fkds[i]["J6"][:rows]         # [nq, dof, B]
+            J = _kp_jac(sc, fkds[i])         # [nq, n, B]
             gs = (J * v[:, None]).sum(0)
             Gs = (J[:, :, None] * _mm(P, J)[:, None]).sum(0)
         gx = gs if gx is None else gx + gs
@@ -376,7 +466,7 @@ def _limit_cost_full(cc: _Consts, X):
 
 
 # ---------------------------------------------------------------------------
-# initial rollout and the static keypoint-step costs
+# closed-loop rollout and the static keypoint-step costs
 # ---------------------------------------------------------------------------
 
 def _static_step_costs(cc: _Consts, X, U, cost):
@@ -393,14 +483,34 @@ def _static_step_costs(cc: _Consts, X, U, cost):
     return cost
 
 
-def _rollout(cc: _Consts, U0, x0):
-    """Open-loop rollout x_{k+1} = x_k + dt u_k of the initial controls
-    U0 [H-1, m, B] from x0 [n, B] -> (X [H, n, B], cost [B])."""
-    X = torch.empty((cc.H,) + tuple(x0.shape), dtype=x0.dtype, device=x0.device)
-    X[0] = x0
-    for k in range(cc.H - 1):
-        X[k + 1] = X[k] + cc.dt * U0[k]
-    return X, _static_step_costs(cc, X, U0, _limit_cost_full(cc, X))
+def _rollout(cc: _Consts, alpha, Ks, ds, Xref, Uref, x0):
+    """Closed-loop rollout u = uo + K (x - xo) + alpha d over all lanes ->
+    (X [H, n, B], U [H-1, m, B], cost [B], sum_k ||du_k|| [B]).
+
+    Ks [H-1, m, n, B], ds/Uref [H-1, m, B], Xref [H, n, B], x0 [n, B]. The
+    time-optimal kind runs `rollout_time1` (the CUDA kernel for CUDA
+    tensors, its twin on the CPU); the LTI kinds integrate x' = x + dt u
+    (first order) or semi-implicit Euler (double integrator). The whole
+    solve's initial rollout is this with zero gains and alpha = 0."""
+    if cc.time:
+        X, U, du2 = rollout_time1(alpha, Ks, ds, Xref, Uref, x0)
+    else:
+        dt, dof = cc.dt, cc.dof
+        X = x0.new_empty((cc.H,) + tuple(x0.shape))
+        U = x0.new_empty(tuple(Uref.shape))
+        du2 = x0.new_empty((cc.H - 1, x0.shape[-1]))
+        X[0] = x = x0
+        for k in range(cc.H - 1):
+            du = (Ks[k] * (x - Xref[k])[None]).sum(1) + alpha * ds[k]
+            u = Uref[k] + du
+            if cc.nb_deriv == 2:
+                x = torch.cat([x[:dof] + dt * x[dof:] + (0.5 * dt * dt) * u,
+                               x[dof:] + dt * u])
+            else:
+                x = x + dt * u
+            X[k + 1], U[k], du2[k] = x, u, (du * du).sum(0)
+    cost = _static_step_costs(cc, X, U, _limit_cost_full(cc, X))
+    return X, U, cost, torch.sqrt(du2).sum(0)
 
 
 # ---------------------------------------------------------------------------
@@ -408,13 +518,15 @@ def _rollout(cc: _Consts, U0, x0):
 # ---------------------------------------------------------------------------
 
 def _backward(cc: _Consts, X, U):
-    """Full backward sweep -> (Ks [H-1, n, n, B], ds [H-1, n, B]).
+    """Full backward sweep -> (Ks [H-1, m, n, B], ds [H-1, m, B]).
 
     The limit quadratics stream as per-step diagonals; the keypoint
     gradients fold into the stage-gradient rows, and the dense keypoint
     Hessians J^T P J enter only at the inner keypoint steps. The terminal
     cost-to-go (cost at H-1 with u = 0) is built here, and the sweep runs in
-    `segment_backward`: the CUDA kernel for CUDA tensors, its twin on the CPU.
+    a whole-sweep kernel for CUDA tensors, its twin on the CPU:
+    `segment_backward` (first order, m = n), `segment_backward_2nd` (double
+    integrator, n = 2m) or `segment_backward_time1` (time-optimal, m = n).
     """
     H = cc.H
     Lq, L2 = _limit_arrays(cc, X)
@@ -436,20 +548,38 @@ def _backward(cc: _Consts, X, U):
         gxx = torch.stack([g for _, _, g in terms])
     else:
         gxx = X.new_zeros((0, cc.n, cc.n, X.shape[-1]))
-    return segment_backward(P.contiguous(), p.contiguous(),
-                            L2[:H - 1].contiguous(), lx.contiguous(),
-                            U.contiguous(), gxx.contiguous(), tuple(inner),
-                            cc.dt, cc.Rt, _REG)
+    args = (P.contiguous(), p.contiguous(), L2[:H - 1].contiguous(),
+            lx.contiguous(), U.contiguous(), gxx.contiguous(), tuple(inner))
+    if cc.time:
+        return segment_backward_time1(*args, cc.Rt, _REG)
+    if cc.nb_deriv == 2:
+        return segment_backward_2nd(*args, cc.dt, cc.Rt, _REG)
+    return segment_backward(*args, cc.dt, cc.Rt, _REG)
 
 
 # ---------------------------------------------------------------------------
-# affine line search: the closed-loop trial dynamics are affine in both x
-# and alpha, so X(alpha) = Xb + alpha Xd and U(alpha) = Ub + alpha Ud from
-# one pass, and each trial is a few whole-array passes with no recursion.
+# line search. The LTI kinds: the closed-loop trial dynamics are affine in
+# both x and alpha, so X(alpha) = Xb + alpha Xd and U(alpha) = Ub + alpha Ud
+# from one pass, and each trial is a few whole-array passes with no
+# recursion. The time-optimal kinds (B depends on u): one rollout a trial.
 # ---------------------------------------------------------------------------
 
 def _alpha_schedule(line_search: bool):
     return [2.0 ** -i for i in range(11)] if line_search else [1.0]
+
+
+def _pick_ls_mode(cc: _Consts, ls: str) -> bool:
+    """The line-search knob -> use the affine family. 'auto': affine for
+    the LTI kinds, re-rollouts for the time-optimal kinds; 'affine' on a
+    time-optimal kind raises (its trials are not affine in alpha)."""
+    if ls not in ("auto", "affine", "scan"):
+        raise ValueError(f"ls must be auto/affine/scan, got {ls!r}")
+    if ls == "affine" and cc.time:
+        raise ValueError(
+            "ls='affine' requires LTI dynamics; the sqrt-dt time-optimal "
+            "kinds have a control-dependent B, so trial trajectories are not "
+            "affine in alpha")
+    return ls == "affine" or (ls == "auto" and not cc.time)
 
 
 def _affine_family(cc: _Consts, Ks, ds, Xref, Uref, x0):
@@ -460,7 +590,7 @@ def _affine_family(cc: _Consts, Ks, ds, Xref, Uref, x0):
     Base (alpha = 0) and direction are carried together as [2, n, B]: the
     direction's reference state and control are zero, so one product with
     K serves both."""
-    H = cc.H
+    H, dt, dof = cc.H, cc.dt, cc.dof
     B = x0.shape[-1]
     zX = torch.zeros_like(Xref[:-1])
     ref_x = torch.stack([Xref[:-1], zX], dim=1)            # [H-1, 2, n, B]
@@ -474,7 +604,14 @@ def _affine_family(cc: _Consts, Ks, ds, Xref, Uref, x0):
         du = (Ks[k][None] * (xbd - ref_x[k])[:, None]).sum(2)  # [2, m, B]
         du[1] += ds[k]
         DU[k] = du
-        xbd = xbd + cc.dt * (du + ref_u[k])
+        v = du + ref_u[k]
+        if cc.nb_deriv == 2:
+            # semi-implicit Euler, on the base and (linearly) the direction
+            q, dq = xbd[:, :dof], xbd[:, dof:]
+            xbd = torch.cat([q + dt * dq + (0.5 * dt * dt) * v, dq + dt * v],
+                            dim=1)
+        else:
+            xbd = xbd + dt * v
         Xbd[k + 1] = xbd
     dub, dud = DU[:, 0], DU[:, 1]
     return (Xbd[:, 0], Xbd[:, 1], Uref + dub, dud, (dub * dub).sum(1),
@@ -486,7 +623,7 @@ def _run_trials_affine(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0,
     """Backtracking over alpha = 1, 1/2, ..., 2^-10 on the affine family:
     the first passing alpha is adopted per lane, the last trial on
     floor-out; the walk stops once every lane has accepted. Inactive lanes
-    start as accepted. -> (Xn, Un, cost, sum ||du||, alpha)."""
+    start as accepted. -> (Xn, Un, cost, sum ||du||, alpha, trials run)."""
     Xb, Xd, Ub, Ud, qa, qb, qc = _affine_family(cc, Ks, ds, X, U, x0)
     H = cc.H
 
@@ -509,10 +646,12 @@ def _run_trials_affine(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0,
     cost = cost0
     du_acc = torch.zeros_like(cost0)
     alpha = torch.ones_like(cost0)
+    n_trials = 0
     for a in a_sched:
         if bool(accepted.all()):
             break
         ct, dut = trial(a)
+        n_trials += 1
         ok = (ct < cost0) & ~torch.isnan(ct)
         take = ~accepted
         cost = torch.where(take, ct, cost)
@@ -521,7 +660,29 @@ def _run_trials_affine(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0,
         accepted = accepted | ok
     Xn = Xb + alpha * Xd
     Un = Ub + alpha * Ud
-    return Xn, Un, cost, du_acc, alpha
+    return Xn, Un, cost, du_acc, alpha, n_trials
+
+
+def _run_trials(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0, inactive):
+    """Backtracking with one closed-loop rollout (`_rollout`) a trial, same
+    decisions as `_run_trials_affine` (first passing alpha per lane, the
+    last trial on floor-out, early exit once every lane has accepted); the
+    time-optimal kind's trial is one `rollout_time1` launch on the card.
+    -> (Xn, Un, cost, sum ||du||, alpha, trials run)."""
+    accepted = inactive.clone()
+    best = (X, U, cost0, torch.zeros_like(cost0), torch.ones_like(cost0))
+    n_trials = 0
+    for a in a_sched:
+        if bool(accepted.all()):
+            break
+        Xt, Ut, ct, dut = _rollout(cc, a, Ks, ds, X, U, x0)
+        n_trials += 1
+        ok = (ct < cost0) & ~torch.isnan(ct)
+        take = ~accepted
+        best = tuple(torch.where(take, new, old) for old, new in
+                     zip(best, (Xt, Ut, ct, dut, torch.full_like(ct, a))))
+        accepted = accepted | ok
+    return best + (n_trials,)
 
 
 # ---------------------------------------------------------------------------
@@ -534,14 +695,22 @@ def _fx_traj(cc: _Consts, X):
     H, n = cc.H, cc.n
     B = X.shape[-1]
     x_flat = X.permute(1, 0, 2).reshape(n, H * B)
+    want_vel = cc.nb_deriv == 2
     comps = []
-    for sc, fkd in zip(cc.subs, _fk_subs(cc, x_flat, False)):
-        if sc.kind == "joint":
+    for sc, fkd in zip(cc.subs, _fk_subs(cc, x_flat, False, want_vel)):
+        if sc.kind.startswith("joint"):
             comps.append(x_flat[:sc.n])
-        elif sc.kind == "point":
+            continue
+        if sc.kind == "point":
             comps.append(fkd["p"][:sc.car_dim])
+            if want_vel:
+                comps.append(fkd["dp"][:sc.car_dim])
         else:
             comps += [fkd["p"], fkd["quat"]]
+            if want_vel:
+                comps += [fkd["dp"], fkd["dquat"]]
+        if sc.time:
+            comps.append(x_flat[n - 1:n])
     fx = torch.cat(comps)
     return fx.reshape(fx.shape[0], H, B).permute(2, 1, 0)
 
@@ -553,18 +722,14 @@ def make_fleet_solver(spec: Spec, nb_iter: int, line_search: bool = True,
     """Build a lane-major fleet solve: (x0s [B, n], U0s [B, H-1, nu]) ->
     ILQRResult with a leading scenario axis, on the spec's device.
 
-    backward: 'auto' only (the CUDA kernel on the card, its twin on the
-    CPU). ls: 'auto' or 'affine' (the scan-free affine trials). Keypoint
-    overrides, `record=True` and ls='scan' are not ported yet.
+    backward: 'auto' only (the CUDA kernels on the card, their twins on the
+    CPU). ls: 'auto' (the affine trials on the LTI kinds, re-rollouts on the
+    time-optimal kinds), 'affine' or 'scan' to force ('affine' on a
+    time-optimal kind raises). Keypoint overrides and `record=True` are not
+    ported yet.
     """
     if backward != "auto":
         raise ValueError(f"backward must be 'auto' in the port, got {backward!r}")
-    if ls not in ("auto", "affine", "scan"):
-        raise ValueError(f"ls must be auto/affine/scan, got {ls!r}")
-    if ls == "scan":
-        raise NotImplementedError(
-            "ls='scan' (sequential re-rollouts) is not ported yet (ROADMAP "
-            "Queue 1 item 7, with the time-optimal kinds that need it)")
     if tuple(overrides):
         raise NotImplementedError(
             f"keypoint overrides {tuple(overrides)} are not ported yet "
@@ -573,18 +738,21 @@ def make_fleet_solver(spec: Spec, nb_iter: int, line_search: bool = True,
         raise NotImplementedError("record=True is not ported yet (ROADMAP "
                                   "slice 2)")
     cc = _Consts(spec)
+    use_affine = _pick_ls_mode(cc, ls)
+    run_trials = _run_trials_affine if use_affine else _run_trials
     n, m, H = cc.n, cc.m, cc.H
     a_sched = _alpha_schedule(line_search)
 
     def solve(x0s, U0s):
+        global TRIALS
         x0 = torch.as_tensor(x0s, dtype=cc.dtype, device=cc.device).T.contiguous()
         U0 = torch.as_tensor(U0s, dtype=cc.dtype,
                              device=cc.device).permute(1, 2, 0).contiguous()
         B = x0.shape[-1]
-        X, cost = _rollout(cc, U0, x0)
-        U = U0
         Ks = x0.new_zeros((H - 1, m, n, B))
         ds = x0.new_zeros((H - 1, m, B))
+        X, U, cost, _ = _rollout(cc, 0.0, Ks, ds, x0.new_zeros((H, n, B)), U0,
+                                 x0)
         it = torch.zeros(B, dtype=torch.int32, device=cc.device)
         done = torch.zeros(B, dtype=torch.bool, device=cc.device)
         alpha = torch.ones_like(cost)
@@ -593,8 +761,9 @@ def make_fleet_solver(spec: Spec, nb_iter: int, line_search: bool = True,
             if not bool(active.any()):
                 break
             Ks_n, ds_n = _backward(cc, X, U)
-            Xn, Un, costn, du_acc, alpha_n = _run_trials_affine(
+            Xn, Un, costn, du_acc, alpha_n, n_trials = run_trials(
                 cc, a_sched, X, U, cost, Ks_n, ds_n, x0, ~active)
+            TRIALS += n_trials
             new_done = done
             if early_stop:
                 new_done = done | ((alpha_n * torch.sqrt(du_acc) < 1e-3)

@@ -5,12 +5,14 @@ PyTorch counterpart of the JAX package's `systems/spec.py`. Keypoints are
 scattered into dense per-timestep tensors (targets `mu[H, nt]`, precisions
 `prec[H, nQ, nQ]`, presence mask `kp_mask[H]`) on the host at build time.
 
-Kinds of this slice, first order (nb_deriv=1) only:
-  'posorn'  end-effector position + quaternion tracking
-  'joint'   joint-space tracking
-  'point'   end-effector position tracking
-The time-optimal kinds and nb_deriv=2 are ROADMAP Queue 1 item 7; sequential
-composition is item 9.
+Kinds, first order (nb_deriv=1) and double integrator (nb_deriv=2):
+  'posorn'       end-effector position + quaternion tracking
+  'joint'        joint-space tracking
+  'point'        end-effector position tracking
+  'posorn_time'  'posorn' with a continuous-time state and a sqrt-dt control
+  'joint_time'   'joint' likewise
+The time-optimal kinds run at nb_deriv=1 only here (nb_deriv=2 is ROADMAP
+Queue 1 item 7, still open); sequential composition is item 9.
 """
 
 import dataclasses
@@ -32,8 +34,16 @@ _KIND_CHECK = {
     "point": ("POINT",),
 }
 
-_SECOND_SLICE = ("is not ported yet (ROADMAP Queue 1 item 7: fleet "
-                 "2nd-order and time-optimal kinds)")
+
+def _target_dim(kind: str, nb_deriv: int, car_dim: int, dof: int) -> int:
+    """Width of the forward-map target (mu rows)."""
+    if kind.startswith("joint"):
+        nt = dof * nb_deriv
+    elif kind.startswith("posorn"):
+        nt = (car_dim + 4) * nb_deriv
+    else:  # point
+        nt = car_dim * nb_deriv
+    return nt + (1 if kind.endswith("_time") else 0)
 
 
 @dataclasses.dataclass
@@ -48,7 +58,7 @@ class Spec:
 
     robot: Optional[Robot] = None
 
-    dt: Optional[torch.Tensor] = None          # fixed step
+    dt: Optional[torch.Tensor] = None          # fixed step (0 for time kinds)
     mu: Optional[torch.Tensor] = None          # [H, nt]
     prec: Optional[torch.Tensor] = None        # [H, nQ, nQ]
     kp_mask: Optional[torch.Tensor] = None     # [H] 0/1
@@ -148,10 +158,13 @@ def make_spec(kind: str, robot: Robot, keypoints, Rt_diag, horizon: int,
     """
     if kind not in _KIND_CHECK:
         raise ValueError(f"unknown system kind {kind!r}")
-    if kind.endswith("_time"):
-        raise NotImplementedError(f"kind {kind!r} {_SECOND_SLICE}")
-    if nb_deriv != 1:
-        raise NotImplementedError(f"nb_deriv={nb_deriv} {_SECOND_SLICE}")
+    time_axis = kind.endswith("_time")
+    if nb_deriv not in (1, 2):
+        raise ValueError(f"nb_deriv must be 1 or 2, got {nb_deriv}")
+    if time_axis and nb_deriv == 2:
+        raise NotImplementedError(
+            f"kind {kind!r} at nb_deriv=2 is not ported yet (ROADMAP Queue 1 "
+            f"item 7: the time-optimal double integrator)")
     if robot.kind != "chain":
         raise NotImplementedError(f"robot kind {robot.kind!r} is not ported yet")
     for kp in keypoints:
@@ -161,7 +174,7 @@ def make_spec(kind: str, robot: Robot, keypoints, Rt_diag, horizon: int,
             raise ValueError(
                 f"[{kind}] Wrong keypoint order (nb_deriv): expecting "
                 f"{nb_deriv} got {kp.order}")
-    if dt is None:
+    if not time_axis and dt is None:
         raise ValueError("dt is required for non-time-optimal systems")
     dev = resolve_device(device)
     np_dtype = np.dtype(str(dtype).removeprefix("torch."))
@@ -169,13 +182,9 @@ def make_spec(kind: str, robot: Robot, keypoints, Rt_diag, horizon: int,
     q0 = np.zeros(dof) if q0 is None else np.asarray(q0, float)
     dq0 = np.zeros(dof) if dq0 is None else np.asarray(dq0, float)
 
-    if kind == "joint":
-        nt = dof
-    elif kind == "posorn":
-        nt = robot.nb_car_dim + 4
-    else:  # point
-        nt = robot.nb_car_dim
-    nq = nt - 1 if kind == "posorn" else nt
+    nt = _target_dim(kind, nb_deriv, robot.nb_car_dim, dof)
+    # residual width: a quaternion (4) gives a tangent (3) per derivative
+    nq = nt - nb_deriv if kind.startswith("posorn") else nt
 
     H = horizon
     mu = np.zeros((H, nt), dtype=np_dtype)
@@ -195,7 +204,11 @@ def make_spec(kind: str, robot: Robot, keypoints, Rt_diag, horizon: int,
             orn_thresh[k] = kp.orn_thresh
 
     limits_set, smax, smin, weight, penalty = _limit_arrays(
-        dof, nb_deriv, q_max, q_min, dq_max, dq_min, False, np_dtype)
+        dof, nb_deriv, q_max, q_min, dq_max, dq_min, time_axis, np_dtype)
+    x0 = [q0] if nb_deriv == 1 else [q0, dq0]
+    if time_axis:
+        x0.append([0.0])
+    x0 = np.concatenate(x0)
 
     def t(a):
         return torch.as_tensor(np.asarray(a, dtype=np_dtype), device=dev)
@@ -210,7 +223,7 @@ def make_spec(kind: str, robot: Robot, keypoints, Rt_diag, horizon: int,
         horizon=H,
         limits_set=limits_set,
         robot=robot,
-        dt=t(dt),
+        dt=t(0.0 if dt is None else dt),
         mu=t(mu),
         prec=t(prec),
         kp_mask=t(kp_mask),
@@ -221,7 +234,7 @@ def make_spec(kind: str, robot: Robot, keypoints, Rt_diag, horizon: int,
         state_max=t(smax),
         limit_weight=t(weight),
         penalty=t(penalty),
-        x0=t(q0),
+        x0=t(x0),
         q0=t(q0),
         dq0=t(dq0),
     )

@@ -177,16 +177,14 @@ def test_out_of_scope_raises_not_implemented():
     _, spec = _specs("joint")
     robot = spec.robot
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        make_spec("posorn_time", robot, [], np.ones(8) * 1e-5, H, 1,
+        make_spec("posorn_time", robot, [], np.ones(8) * 1e-5, H, 2,
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        make_spec("joint", robot, [], np.ones(7) * 1e-5, H, 2, dt=0.1,
+    with pytest.raises(ValueError, match="nb_deriv must be 1 or 2"):
+        make_spec("joint", robot, [], np.ones(7) * 1e-5, H, 3, dt=0.1,
                   device="cpu")
     with pytest.raises(ValueError, match="unknown system kind"):
         make_spec("sequential", robot, [], np.ones(7) * 1e-5, H, 1, dt=0.1,
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="ls='scan'"):
-        make_fleet_solver(spec, 2, ls="scan")
     with pytest.raises(NotImplementedError, match="overrides"):
         make_fleet_solver(spec, 2, overrides=("mu",))
     with pytest.raises(NotImplementedError, match="record"):
