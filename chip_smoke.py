@@ -2,10 +2,13 @@
 
     python3 chip_smoke.py
 
-Three paths, each through `ilqr_planner_torch.parallel.solve_batch` on a
+Four paths, each through `ilqr_planner_torch.parallel.solve_batch` on a
 7-DoF Panda, float32:
   flagship   position + quaternion via-points at steps 49 and 99, H=100,
              dt=0.1, 10 iterations, B=36864 (backward: segment_backward);
+  recursive  the flagship's problem and its first 4096 lanes through
+             solve_batch(prefer_fleet=False): the recursive solver, dense
+             stage terms at every step (backward: riccati);
   posorn2nd  the double integrator, via-points with velocity targets at
              199 and 399, H=400, dt=0.01, 15 iterations, B=4096
              (backward: segment_backward_2nd);
@@ -24,16 +27,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
   3. each path end to end: a first solve with every launch count set to 0
      just before it and read just after (each kernel of the path must have
      launched: once per backward sweep, and for the rollout once per
-     line-search trial plus once for the solve's initial rollout), then the
-     median of 5 timed repeats with the spread,
-     solves/s, median cost and iterations;
+     line-search trial plus once for the solve's initial rollout; no
+     backward kernel of another path may have launched), then the median of
+     5 timed repeats with the spread, solves/s, median cost and iterations;
   4. each path's first 64 lanes in float64, on the card and on the CPU
      (where the wrappers run the twins): same iterations and alpha per lane,
      cost within 1e-8 relative, or within 10 times the CPU's own spread
      under a 1e-15 relative change of x0 where the solve is that sensitive;
-  5. a torch.profiler trace of one solve of each path: device busy time,
-     its share of the unprofiled wall time, the top kernels (the full table
-     goes to chiprun_out/profile_<path>.txt).
+     and the recursive path against the fleet path on the card on the same
+     64 lanes, cost within 1e-8 relative;
+  5. one line, no gate: at B=4096, the dense input assembly and the riccati
+     kernel beside the fleet's keypoint-sparse assembly and segment_backward;
+  6. two lines, no gate: the riccati kernel against its twin at inputs
+     harder than phase 2's (the limit penalty live on 5% and 20% of the
+     entries), beside the twin against an LU recursion on the same inputs;
+  7. a torch.profiler trace of a window of each path's solve (its initial
+     rollout and first two iterations, each a backward sweep and a line
+     search): device busy time, its share of the window's unprofiled wall
+     time, the top kernels (the full table goes to
+     chiprun_out/profile_<path>.txt).
 Then the kernel table and, last, {"ok": true, "device": {...}}.
 
 It needs one card, and the repository it sits in; without either it fails
@@ -65,6 +77,8 @@ T2 = ([0.254121212377707, -0.07575049935289518, 0.13170744424127526],
 H, N, B, NB_ITER, REPEATS = 100, 7, 36864, 10, 5
 KP_INNER = (49,)          # the terminal keypoint (99) folds into P0
 QD6 = [1, 1, 1, .1, .1, .1]
+NQ = 6                    # residual width of the position + quaternion kind
+REC_B = 4096              # the recursive path's batch
 
 # The two configurations of the JAX package's bench_table.py rows
 # posorn2nd_h400_ilqr15 and timeopt_h100_ilqr20, at their full batch, with
@@ -104,7 +118,7 @@ def fail(msg):
 
 
 # ---------------------------------------------------------------------------
-# the three configurations
+# the configurations
 # ---------------------------------------------------------------------------
 
 def _panda(dtype, device):
@@ -131,6 +145,12 @@ def flagship_batch(batch):
     rng = np.random.default_rng(0)
     q0s = Q0[None, :] + 0.05 * rng.normal(size=(batch, 7))
     return q0s, np.zeros((batch, H - 1, 7))
+
+
+def recursive_batch(batch):
+    """The first `batch` lanes of the flagship batch."""
+    q0s, U0s = flagship_batch(B)
+    return q0s[:batch], U0s[:batch]
 
 
 def posorn2nd_spec(torch, dtype, device):
@@ -289,6 +309,90 @@ def rollout_bytes(n, hm1, batch, itemsize):
     return batch * vals * itemsize
 
 
+def riccati_inputs(batch, limit_frac=0.005, seed=0):
+    """Seeded inputs of the dense Riccati sweep at H, N, NQ: Jacobians and
+    residuals at every step, the limit penalty live on a share `limit_frac`
+    of the entries (a solve's limits are rarely active, and every active
+    step amplifies the recursion's rounding: 0.5% is the checks' share)
+    -> (J, e, ld, lq, u)."""
+    rng = np.random.default_rng(seed)
+    J = rng.normal(size=(batch, H, NQ, N)) * 0.3
+    e = rng.normal(size=(batch, H, NQ)) * 0.05
+    ld = (rng.uniform(size=(batch, H, N)) < limit_frac).astype(float)
+    lq = ld * rng.normal(size=(batch, H, N)) * 0.1
+    u = rng.normal(size=(batch, H - 1, N)) * 0.1
+    return J, e, ld, lq, u
+
+
+def riccati_prec(dense, weight=None):
+    """Precisions [H, NQ, NQ]: the flagship's at steps H/2 and H-1, or the
+    flagship's times `weight` (1e-4 unless given) at every step. (Unit
+    precisions at all 100 steps keep dt^2 P far above Rt, where the
+    recursion doubles the antisymmetric rounding residue of P every step
+    and the port's twin leaves float64; a tracking weight small against
+    Rt / dt^2 does not.)"""
+    prec = np.zeros((H, NQ, NQ))
+    if dense:
+        prec[:] = (1e-4 if weight is None else weight) * np.diag(QD6)
+    else:
+        prec[[H // 2, H - 1]] = (1.0 if weight is None else weight) * np.diag(QD6)
+    return prec
+
+
+def riccati_lu_sweep(torch, J, ld, prec, Rt=1e-5, dt=0.1, reg=1e-6):
+    """The gains of the dense sweep by the same recursion with an LU solve
+    (`torch.linalg.solve`) in place of the explicit Gauss-Jordan inverse
+    -> (K [B, H-1, N, N], the largest |P - P'| entry seen along the sweep).
+    Another order of the same sums: how far it lands from the twin says how
+    much the recursion amplifies rounding on these inputs."""
+    eye = torch.eye(N, dtype=J.dtype, device=J.device)
+    Jt = J.transpose(-1, -2)
+    lxx = Jt @ (prec @ J) + torch.diag_embed(ld * ld)
+    P = lxx[:, H - 1]
+    K = torch.empty((J.shape[0], H - 1, N, N), dtype=J.dtype, device=J.device)
+    asym = 0.0
+    for t in range(H - 2, -1, -1):
+        Mr = dt * dt * P + (Rt + reg) * eye
+        Qux = dt * P
+        Kt = -torch.linalg.solve(Mr, Qux)
+        KT = Kt.transpose(-1, -2)
+        P = (lxx[:, t] + P + KT @ (Mr - reg * eye) @ Kt + KT @ Qux
+             + Qux.transpose(-1, -2) @ Kt)
+        K[:, t] = Kt
+        a = float((P - P.transpose(-1, -2)).abs().max())
+        asym = max(asym, a) if math.isfinite(a) else float("inf")
+    return K, asym
+
+
+def rel_diff(a, b):
+    """max |a - b| / max |b|, or None where either holds a non-finite
+    value."""
+    if not (bool(a.isfinite().all()) and bool(b.isfinite().all())):
+        return None
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+def riccati_flops(n, nq, h, batch):
+    """Operations of one dense sweep, counted from the loops of
+    csrc/riccati.cu (each add, multiply, divide or sign flip one): the stage
+    terms at all h steps, the recursion at h - 1."""
+    dot = 2 * nq - 1
+    stage = nq * n * dot + nq * dot + n * n * dot + 2 * n + n * (dot + 3)
+    system = n * n + 2 * n + 3 * n + n
+    gauss = n * (1 + 2 * n + 4 * n * (n - 1))
+    gains = n * (n + n * (3 * n - 1) + 2 * n - 1)
+    ktq = n * n * (3 * n + 2)
+    value = n * n * (8 * n + 1) + n * 7 * n
+    return batch * (h * stage + (h - 1) * (system + gauss + gains + ktq + value))
+
+
+def riccati_bytes(n, nq, h, batch, itemsize):
+    """Each input read once (J, e, ld, lq, u, prec, parameters), each output
+    written once (K, d)."""
+    vals = h * (nq * n + nq + 2 * n) + (h - 1) * n + (h - 1) * (n * n + n)
+    return (batch * vals + h * nq * nq + 2 + n) * itemsize
+
+
 def bound(nbytes, flops):
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
     return {"bytes_f32": nbytes, "flops": flops,
@@ -324,11 +428,12 @@ def phase_device_and_build():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    from ilqr_planner_torch.ops.cuda_kernels import (nvcc_build, rollout_time1,
+    from ilqr_planner_torch.ops.cuda_kernels import (nvcc_build, riccati,
+                                                     rollout_time1,
                                                      segment_backward,
                                                      segment_backward_2nd)
 
-    mods = (segment_backward, segment_backward_2nd, rollout_time1)
+    mods = (segment_backward, segment_backward_2nd, rollout_time1, riccati)
     t0 = time.time()
     with ThreadPoolExecutor(len(mods)) as ex:     # one nvcc per source
         built = list(ex.map(lambda mod: mod.build(), mods))
@@ -375,6 +480,7 @@ def _gate_kernel(out):
 
 
 def phase_kernels_vs_twins(torch):
+    from ilqr_planner_torch.ops.cuda_kernels import riccati as ric
     from ilqr_planner_torch.ops.cuda_kernels import rollout_time1 as rt1
     from ilqr_planner_torch.ops.cuda_kernels import segment_backward as sb
     from ilqr_planner_torch.ops.cuda_kernels import segment_backward_2nd as sb2
@@ -427,46 +533,109 @@ def phase_kernels_vs_twins(torch):
         lambda *a: rt1.rollout_time1_reference(0.5, *a), 5)
     out.update(bound(rollout_bytes(n, hm1, Bt, 4), rollout_flops(n, hm1, Bt)))
     res["rollout_time1"] = _gate_kernel(out)
+
+    # the dense Riccati sweep: the recursive path's batch and the flagship's,
+    # precisions at two steps (the paths' own pattern) and at every step
+    Rt = [1e-5] * N
+    full = riccati_inputs(B)
+    for batch in (REC_B, B):
+        lanes = tuple(a[:batch] for a in full)
+        for dense in (False, True):
+            out = _kernel_vs_twin(
+                torch, "riccati", {"n": N, "nq": NQ, "H": H, "B": batch,
+                                   "prec_steps": H if dense else 2},
+                lanes + (riccati_prec(dense),),
+                lambda *a: ric.riccati_backward(*a, Rt, 0.1),
+                lambda *a: ric.riccati_backward_reference(*a, Rt, 0.1), 3)
+            out.update(bound(riccati_bytes(N, NQ, H, batch, 4),
+                             riccati_flops(N, NQ, H, batch)))
+            key = "riccati" + ("_dense" if dense else "") + (
+                "" if batch == REC_B else f"_b{batch}")
+            res[key] = _gate_kernel(out)
     return res
 
 
+def phase_riccati_rounding(torch):
+    """One line a case, no gate: the riccati kernel against its twin on the
+    card at inputs harder than the gated checks' (the limit penalty live on
+    5% and on 20% of the entries, precisions at two steps, B = REC_B),
+    float64 and float32, beside what the recursion itself does to rounding
+    on the same inputs: the twin against the LU recursion in float64, and
+    the float32 twin against the float64 twin. None marks a side that is
+    not finite."""
+    from ilqr_planner_torch.ops.cuda_kernels import riccati as ric
+
+    Rt = [1e-5] * N
+    prec_np = riccati_prec(False)
+    for limit_frac in (0.05, 0.2):
+        args_np = riccati_inputs(REC_B, limit_frac) + (prec_np,)
+        out = {"phase": "riccati_rounding", "limit_frac": limit_frac,
+               "batch": REC_B, "prec_steps": 2}
+        twins = {}
+        for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+            args = [torch.as_tensor(a, dtype=dtype, device="cuda")
+                    for a in args_np]
+            K, d = ric.riccati_backward(*args, Rt, 0.1)
+            Kt, dt_ = twins[tag] = ric.riccati_backward_reference(*args, Rt, 0.1)
+            out[f"kernel_vs_twin_rel_K_{tag}"] = rel_diff(K, Kt)
+            out[f"kernel_vs_twin_rel_d_{tag}"] = rel_diff(d, dt_)
+            if tag == "f64":
+                K_lu, asym = riccati_lu_sweep(torch, args[0], args[2], args[5])
+                out["twin_vs_lu_rel_K_f64"] = rel_diff(Kt, K_lu)
+                out["max_asym_P_f64"] = asym if math.isfinite(asym) else None
+        out["twin_f32_vs_twin_f64_rel_K"] = rel_diff(twins["f32"][0].double(),
+                                                     twins["f64"][0])
+        emit(out)
+        del twins, args, K, d, K_lu
+        torch.cuda.empty_cache()
+
+
+KERNELS = ("segment_backward", "segment_backward_2nd",
+           "segment_backward_time1", "rollout_time1", "riccati")
+
+
 def _reset_counts():
+    from ilqr_planner_torch.ops.cuda_kernels import riccati as ric
     from ilqr_planner_torch.ops.cuda_kernels import rollout_time1 as rt1
     from ilqr_planner_torch.ops.cuda_kernels import segment_backward as sb
     from ilqr_planner_torch.ops.cuda_kernels import segment_backward_2nd as sb2
-    from ilqr_planner_torch.solvers import fleet
+    from ilqr_planner_torch.solvers import fleet, ilqr
 
     sb.LAUNCHES = 0
     rt1.LAUNCHES = 0
+    ric.LAUNCHES = 0
     for k in sb2.LAUNCHES:
         sb2.LAUNCHES[k] = 0
     fleet.TRIALS = 0
+    ilqr.TRIALS = 0
 
 
 def _read_counts():
+    from ilqr_planner_torch.ops.cuda_kernels import riccati as ric
     from ilqr_planner_torch.ops.cuda_kernels import rollout_time1 as rt1
     from ilqr_planner_torch.ops.cuda_kernels import segment_backward as sb
     from ilqr_planner_torch.ops.cuda_kernels import segment_backward_2nd as sb2
-    from ilqr_planner_torch.solvers import fleet
+    from ilqr_planner_torch.solvers import fleet, ilqr
 
     return {"segment_backward": sb.LAUNCHES,
             "segment_backward_2nd": sb2.LAUNCHES["second"],
             "segment_backward_time1": sb2.LAUNCHES["time1"],
-            "rollout_time1": rt1.LAUNCHES, "trials": fleet.TRIALS}
+            "rollout_time1": rt1.LAUNCHES, "riccati": ric.LAUNCHES,
+            "trials": fleet.TRIALS, "recursive_trials": ilqr.TRIALS}
 
 
-def _drive(torch, spec, x0s, U0s, nb_iter):
+def _drive(torch, spec, x0s, U0s, nb_iter, prefer_fleet=True):
     """One solve with every count at 0 just before it, then REPEATS timed
-    ones -> (result, counts, first_s, repeat times, the solve as a
-    callable)."""
+    ones -> (result, counts, first_s, repeat times, the solve as a callable
+    of the number of iterations)."""
     from ilqr_planner_torch.parallel import solve_batch
 
     x0s_t = torch.as_tensor(x0s, dtype=torch.float32, device="cuda")
     U0s_t = torch.as_tensor(U0s, dtype=torch.float32, device="cuda")
     ov = {"q0": x0s_t[:, :7], "x0": x0s_t}
 
-    def run():
-        return solve_batch(spec, ov, U0s_t, nb_iter)
+    def run(n=nb_iter):
+        return solve_batch(spec, ov, U0s_t, n, prefer_fleet=prefer_fleet)
 
     torch.cuda.synchronize()
     _reset_counts()
@@ -535,6 +704,40 @@ def phase_flagship(torch):
     if counts["segment_backward"] == 0 or counts["segment_backward"] != sweeps:
         fail(f"flagship: segment_backward launched {counts['segment_backward']} "
              f"times for {sweeps} sweeps")
+    others = [k for k in KERNELS if counts[k] and k != "segment_backward"]
+    if others:
+        fail(f"flagship: kernels of other paths launched: {others}")
+    return out, run
+
+
+def phase_recursive(torch):
+    """The flagship's problem through solve_batch(prefer_fleet=False)."""
+    spec = flagship_spec(torch, torch.float32, "cuda")
+    q0s, U0s = recursive_batch(REC_B)
+    res, counts, first_s, times, run = _drive(torch, spec, q0s, U0s, NB_ITER,
+                                              prefer_fleet=False)
+    sweeps = int(res.iterations.max())      # one backward sweep an iteration
+    out = {"phase": "end_to_end", "path": "recursive", "nb_iter": NB_ITER,
+           **_result_summary(res, REC_B, first_s, times, counts,
+                             ((REC_B, H, N), (REC_B, H - 1, N), (REC_B, H, 7))),
+           "converged_frac": float(np.mean(res.cost.double().cpu().numpy() < 1e-4)),
+           "backward_sweeps": sweeps,
+           "line_search_trials": counts["recursive_trials"]}
+    emit(out)
+    if not out["shapes_ok"] or not out["finite"] or not out["finite_costs"]:
+        fail("recursive: result has the wrong shape or non-finite values")
+    if out["converged_frac"] < 0.95:
+        fail(f"recursive: converged fraction {out['converged_frac']} < 0.95")
+    if sweeps == 0 or counts["riccati"] != sweeps:
+        fail(f"recursive: riccati launched {counts['riccati']} times for "
+             f"{sweeps} sweeps")
+    if counts["recursive_trials"] < sweeps:
+        fail(f"recursive: {counts['recursive_trials']} line-search trials for "
+             f"{sweeps} iterations")
+    others = [k for k in KERNELS if counts[k] and k != "riccati"]
+    if others or counts["trials"]:
+        fail(f"recursive: the fleet path ran (kernels {others}, "
+             f"{counts['trials']} fleet trials)")
     return out, run
 
 
@@ -542,6 +745,8 @@ def _config(path):
     """(spec builder, batch builder, batch size, iterations) of a path."""
     if path == "flagship":
         return flagship_spec, flagship_batch, B, NB_ITER
+    if path == "recursive":
+        return flagship_spec, recursive_batch, REC_B, NB_ITER
     fns = ((posorn2nd_spec, posorn2nd_batch) if path == "posorn2nd"
            else (timeopt_spec, timeopt_batch))
     return fns + (PATHS[path]["B"], PATHS[path]["nb_iter"])
@@ -577,8 +782,7 @@ def phase_new_path(torch, path):
                               counts["rollout_time1"] != counts["trials"] + 1):
         fail(f"timeopt: rollout_time1 launched {counts['rollout_time1']} times "
              f"for {counts['trials']} trials and 1 initial rollout")
-    others = [k for k in ("segment_backward", "segment_backward_2nd",
-                          "segment_backward_time1", "rollout_time1")
+    others = [k for k in KERNELS
               if counts[k] and k != kern and not (path == "timeopt"
                                                   and k == "rollout_time1")]
     if others:
@@ -586,20 +790,31 @@ def phase_new_path(torch, path):
     return out, run
 
 
-def phase_cross_check(torch, path):
-    """The path's first 64 lanes in float64 on the card and on the CPU."""
+def _solver(path, spec, nb_iter):
+    """The path's solve as f(x0s, U0s): the fleet solver, or for the
+    recursive path solve_batch(prefer_fleet=False)."""
+    from ilqr_planner_torch.parallel import solve_batch
     from ilqr_planner_torch.solvers.fleet import make_fleet_solver
 
+    if path == "recursive":
+        return lambda x0s, U0s: solve_batch(spec, {"x0": x0s}, U0s, nb_iter,
+                                            prefer_fleet=False)
+    return make_fleet_solver(spec, nb_iter)
+
+
+def phase_cross_check(torch, path):
+    """The path's first 64 lanes in float64 on the card and on the CPU; for
+    the recursive path also against the fleet path on the card."""
     spec_fn, batch_fn, batch, nb_iter = _config(path)
     x0s, U0s = batch_fn(batch)
     x0s, U0s = x0s[:XCHECK_B], U0s[:XCHECK_B]
+    spec_gpu = spec_fn(torch, torch.float64, "cuda")
     _reset_counts()
-    gpu = make_fleet_solver(spec_fn(torch, torch.float64, "cuda"),
-                            nb_iter)(x0s, U0s)
+    gpu = _solver(path, spec_gpu, nb_iter)(x0s, U0s)
     torch.cuda.synchronize()
     gpu_counts = _read_counts()
     _reset_counts()
-    cpu_solve = make_fleet_solver(spec_fn(torch, torch.float64, "cpu"), nb_iter)
+    cpu_solve = _solver(path, spec_fn(torch, torch.float64, "cpu"), nb_iter)
     cpu = cpu_solve(x0s, U0s)
     cpu_counts = _read_counts()
     # the CPU's own spread: the same solve from x0 moved by 1e-15 relative
@@ -609,8 +824,6 @@ def phase_cross_check(torch, path):
     spread = float(np.max(np.abs(cpu_solve(x0p, U0s).cost.numpy() - c_cpu)
                           / np.abs(c_cpu)))
     gate = max(XCHECK_REL, XCHECK_SENS_FACTOR * spread)
-    kernels = ("segment_backward", "segment_backward_2nd",
-               "segment_backward_time1", "rollout_time1")
     c_gpu = gpu.cost.cpu().numpy()
     rel = float(np.max(np.abs(c_gpu - c_cpu) / np.abs(c_cpu)))
     out = {"phase": "card_vs_cpu", "path": path, "batch": XCHECK_B,
@@ -623,8 +836,8 @@ def phase_cross_check(torch, path):
            "cost_median_rel_diff": float(np.median(np.abs(c_gpu - c_cpu)
                                                    / np.abs(c_cpu))),
            "cpu_self_spread_x0_1e-15": spread, "tolerance": gate,
-           "card_kernel_launches": {k: gpu_counts[k] for k in kernels},
-           "cpu_kernel_launches": {k: cpu_counts[k] for k in kernels},
+           "card_kernel_launches": {k: gpu_counts[k] for k in KERNELS},
+           "cpu_kernel_launches": {k: cpu_counts[k] for k in KERNELS},
            "U_max_abs_diff": float((gpu.U.cpu() - cpu.U).abs().max())}
     emit(out)
     if not (out["same_iterations"] and out["same_alpha"] and rel <= gate):
@@ -633,15 +846,95 @@ def phase_cross_check(torch, path):
             out["cpu_kernel_launches"].values()):
         fail(f"{path}: the card run must launch the kernels and the CPU run "
              f"must not")
+    if path != "recursive":
+        return
+    fleet = _solver("flagship", spec_gpu, nb_iter)(x0s, U0s)
+    c_fleet = fleet.cost.cpu().numpy()
+    rel = float(np.max(np.abs(c_gpu - c_fleet) / np.abs(c_fleet)))
+    out = {"phase": "recursive_vs_fleet", "batch": XCHECK_B, "dtype": "float64",
+           "same_iterations": bool(torch.equal(gpu.iterations, fleet.iterations)),
+           "same_alpha": bool(torch.equal(gpu.alpha, fleet.alpha)),
+           "cost_max_rel_diff": rel, "tolerance": XCHECK_REL,
+           "U_max_abs_diff": float((gpu.U - fleet.U).abs().max()),
+           "Ks_max_abs_diff": float((gpu.Ks - fleet.Ks).abs().max())}
+    emit(out)
+    if rel > XCHECK_REL:
+        fail("recursive and fleet paths disagree on the card")
 
 
-def profile_solve(torch, path, run, wall_s):
-    """Device time by kernel over one solve; `wall_s` is the unprofiled
-    median solve time, so busy / wall is the device's busy share."""
+def phase_dense_vs_sparse(torch):
+    """One line, no gate: the two backward passes of the flagship problem at
+    B = REC_B on random states, float32 -- the dense input assembly (forward
+    kinematics, Jacobian, residual and limit terms at every step) and the
+    riccati kernel, beside the fleet's backward (keypoint-sparse assembly +
+    segment_backward) and segment_backward alone."""
+    from ilqr_planner_torch.ops.cuda_kernels import riccati as ric
+    from ilqr_planner_torch.ops.cuda_kernels import segment_backward as sb
+    from ilqr_planner_torch.solvers import fleet
+    from ilqr_planner_torch.systems import funcs
+
+    spec = flagship_spec(torch, torch.float32, "cuda")
+    rng = np.random.default_rng(0)
+    X = torch.as_tensor(rng.normal(size=(H, N, REC_B)) * 0.3 + Q0[None, :, None],
+                        dtype=torch.float32, device="cuda")
+    U = torch.as_tensor(rng.normal(size=(H - 1, N, REC_B)) * 0.1,
+                        dtype=torch.float32, device="cuda")
+    Xb, Ub = X.permute(2, 0, 1).contiguous(), U.permute(2, 0, 1).contiguous()
+    ks = torch.arange(H, device="cuda")
+    Rt, dt = spec.Rt.tolist(), float(spec.dt)
+
+    def assemble():
+        fX, Js = funcs.fx_jac(spec, Xb)
+        ld, lq = funcs.limit_terms(spec, Xb)
+        return (Js.contiguous(), funcs.residual(spec, fX, ks).contiguous(), ld,
+                lq, Ub, spec.prec)
+
+    ins = assemble()
+    cc = fleet._Consts(spec)
+    sweep_args = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                  for a in sweep_inputs(N, N, H - 1, len(KP_INNER), REC_B)]
+    Kr, dr = ric.riccati_backward(*ins, Rt, dt)
+    Kf, df = fleet._backward(cc, X, U)
+    emit({"phase": "dense_vs_sparse_backward", "batch": REC_B, "dtype": "float32",
+          "dense_assembly_ms": cuda_ms(torch, assemble),
+          "riccati_ms": cuda_ms(torch, lambda: ric.riccati_backward(*ins, Rt, dt)),
+          "fleet_backward_with_sparse_assembly_ms": cuda_ms(
+              torch, lambda: fleet._backward(cc, X, U)),
+          "segment_backward_ms": cuda_ms(
+              torch, lambda: sb.segment_backward(*sweep_args, KP_INNER, 0.1,
+                                                 [1e-5] * N)),
+          "agreement_max_abs_dK": float(
+              (Kr - Kf.permute(3, 0, 1, 2)).abs().max()),
+          "agreement_max_abs_dd": float((dr - df.permute(2, 0, 1)).abs().max())})
+
+
+# The profiled window: the solve's initial rollout and its first two
+# iterations. Early iterations accept alpha = 1 on most paths (one trial
+# each), while a whole solve backtracks later (the recursive path: 63 trials
+# in 10 iterations), so the window's line of `line_search_trials` says how
+# many trial rollouts its shares stand for.
+PROFILE_ITERS = 2
+
+
+def profile_window(torch, path, run):
+    """Device time by kernel over a window of the path's solve,
+    `run(PROFILE_ITERS)`: the initial rollout, then per iteration one
+    backward sweep and its line search. The window is timed once unprofiled
+    first, so busy / wall is the device's busy share. (Tracing a whole
+    solve of 46k-197k launches cost the profiler a minute a path and shows
+    the same kernels.)"""
+    run(PROFILE_ITERS)                      # builds the solver's constants
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    run(PROFILE_ITERS)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    counts = _read_counts()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        run()
+        run(PROFILE_ITERS)
         torch.cuda.synchronize()
     events = prof.key_averages()
     table = events.table(sort_by="cuda_time_total", row_limit=60)
@@ -656,7 +949,9 @@ def profile_solve(torch, path, run, wall_s):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -dev_us(e))[:8]
-    emit({"phase": "profile", "path": path, "device_busy_ms": busy_ms,
+    emit({"phase": "profile", "path": path, "iterations": PROFILE_ITERS,
+          "line_search_trials": counts["trials"] + counts["recursive_trials"],
+          "unprofiled_wall_ms": 1e3 * wall_s, "device_busy_ms": busy_ms,
           "device_launches": sum(e.count for e in kernels),
           "busy_share_of_unprofiled_wall": busy_ms / 1e3 / wall_s,
           "top_kernels": [[e.key[:80], dev_us(e) / 1e3, e.count] for e in top]})
@@ -673,16 +968,27 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
-    phase_device_and_build()
-    kv = phase_kernels_vs_twins(torch)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        phase_s[name] = phase_s.get(name, 0.0) + time.time() - t0
+        return out
+
+    timed("build", phase_device_and_build)
+    kv = timed("kernels_vs_twins", phase_kernels_vs_twins, torch)
     e2e = {}
-    e2e["flagship"] = phase_flagship(torch)
+    e2e["flagship"] = timed("flagship", phase_flagship, torch)
+    e2e["recursive"] = timed("recursive", phase_recursive, torch)
     for path in PATHS:
-        e2e[path] = phase_new_path(torch, path)
+        e2e[path] = timed(path, phase_new_path, torch, path)
     for path in e2e:
-        phase_cross_check(torch, path)
-    for path, (out, run) in e2e.items():
-        profile_solve(torch, path, run, statistics.median(out["repeat_times_s"]))
+        timed("cross_checks", phase_cross_check, torch, path)
+    timed("dense_vs_sparse", phase_dense_vs_sparse, torch)
+    timed("riccati_rounding", phase_riccati_rounding, torch)
+    for path, (_, run) in e2e.items():
+        timed("profiles", profile_window, torch, path, run)
 
     def row(name, src, replaces, kv_key, launches):
         k = kv[kv_key]
@@ -697,6 +1003,15 @@ def main():
                 "library_ms": None}
 
     pallas = "ilqr_planner_tpu/ops/pallas_kernels/"
+    riccati_row = row("riccati", "riccati.cu", pallas + "riccati.py:258",
+                      "riccati", e2e["recursive"][0]["launches"]["riccati"])
+    for key in ("riccati_dense", f"riccati_b{B}", f"riccati_dense_b{B}"):
+        tag = key.removeprefix("riccati_")
+        riccati_row.update({f"ms_{tag}": kv[key]["kernel_ms_f32"],
+                            f"ms_f64_{tag}": kv[key]["kernel_ms_f64"],
+                            f"plain_ms_{tag}": kv[key]["twin_ms_f32"],
+                            f"bound_ms_{tag}": kv[key]["bound_ms_f32"],
+                            f"max_abs_err_{tag}": kv[key]["max_abs_err_f64"]})
     emit({"kernels": [
         row("segment_backward", "segment_backward.cu",
             pallas + "segment_backward.py:339", "segment_backward",
@@ -708,8 +1023,9 @@ def main():
             pallas + "segment_backward_2nd.py:270", "time1",
             e2e["timeopt"][0]["launches"]["segment_backward_time1"]),
         row("rollout_time1", "rollout_time1.cu", pallas + "rollout_time1.py:169",
-            "rollout_time1", e2e["timeopt"][0]["launches"]["rollout_time1"])],
-        "total_s": time.time() - t_start})
+            "rollout_time1", e2e["timeopt"][0]["launches"]["rollout_time1"]),
+        riccati_row],
+        "phase_s": phase_s, "total_s": time.time() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

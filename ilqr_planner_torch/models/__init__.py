@@ -9,7 +9,7 @@ from pathlib import Path
 from ilqr_planner_torch.models.chain import (KinematicChain, chain_fk,
                                              chain_jacobian, chain_kin)
 from ilqr_planner_torch.models.kinstate import KinState
-from ilqr_planner_torch.models.robot import Robot
+from ilqr_planner_torch.models.robot import Robot, robot_fk, robot_kin
 from ilqr_planner_torch.models.urdf import chain_from_urdf, parse_urdf
 
 PANDA_URDF = Path(__file__).resolve().parent / "data" / "panda.urdf"
@@ -24,4 +24,6 @@ __all__ = [
     "chain_jacobian",
     "chain_kin",
     "parse_urdf",
+    "robot_fk",
+    "robot_kin",
 ]

@@ -44,6 +44,14 @@ class KinematicChain:
         return self.origin_pos.shape[-2]
 
 
+def _mm3(A, Bm):
+    """A [..., 3, 3] @ Bm [..., 3, 3] as one broadcast multiply and a sum
+    over the three terms: over a large batch of 3 x 3 products this is a few
+    elementwise passes, where a batched matrix product runs one tiny GEMM a
+    state."""
+    return (A[..., :, :, None] * Bm[..., None, :, :]).sum(-2)
+
+
 def _frames(chain: KinematicChain, q):
     """Walk the chain: (p_ee [..., 3], R_ee [..., 3, 3], z [..., nj, 3] world
     joint axes, o [..., nj, 3] world joint origins)."""
@@ -58,7 +66,7 @@ def _frames(chain: KinematicChain, q):
         prism = chain.prismatic[i]
         # branchless revolute/prismatic: rotate by q (1 - prism), translate
         # by q prism
-        R = R @ so3.axis_angle(chain.axis[i], q[..., i] * (1.0 - prism))
+        R = _mm3(R, so3.axis_angle(chain.axis[i], q[..., i] * (1.0 - prism)))
         p = p + z * (q[..., i] * prism)[..., None]
         zs.append(z)
         os_.append(p)

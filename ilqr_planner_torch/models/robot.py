@@ -10,9 +10,11 @@ from typing import Optional
 
 import torch
 
-from ilqr_planner_torch.models.chain import KinematicChain
+from ilqr_planner_torch.models.chain import (KinematicChain, chain_fk,
+                                             chain_kin)
+from ilqr_planner_torch.models.kinstate import KinState
 
-__all__ = ["Robot"]
+__all__ = ["Robot", "robot_fk", "robot_kin"]
 
 _LATER = ("is not ported yet (ROADMAP Queue 1 item 9: sequential specs, "
           "object frames and the planar robot)")
@@ -45,3 +47,23 @@ class Robot:
     @staticmethod
     def from_planar(planar) -> "Robot":
         raise NotImplementedError(f"the planar robot {_LATER}")
+
+
+def _chain_only(robot: Robot):
+    if robot.kind != "chain":
+        raise NotImplementedError(f"robot kind {robot.kind!r} {_LATER}")
+    if robot.frame is not None:
+        raise NotImplementedError(f"object frames {_LATER}")
+
+
+def robot_kin(robot: Robot, q, dq) -> KinState:
+    """Kinematic state of `robot` at (q, dq), over leading batch axes."""
+    _chain_only(robot)
+    return chain_kin(robot.chain, q, dq)
+
+
+def robot_fk(robot: Robot, q):
+    """(position [..., 3], quaternion [..., 4]) of the end effector at q: the
+    `x` and `quat` of `robot_kin` from the chain walk alone, no Jacobian."""
+    _chain_only(robot)
+    return chain_fk(robot.chain, q)

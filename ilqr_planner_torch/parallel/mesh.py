@@ -1,10 +1,13 @@
 """Scenario batching: one call solves a batch of problems on one device.
 
 PyTorch counterpart of `solve_batch` in the JAX package's `parallel/mesh.py`.
-The batch goes to the lane-major fleet solver (`solvers/fleet.py`); built
-solvers are memoized by the spec's content in a 32-entry LRU. The vmap
-fallback over the single-problem solver, keypoint overrides and
-`record=True` are ROADMAP slice 2, and raise until then.
+A spec in the fleet's scope goes to the lane-major fleet solver
+(`solvers/fleet.py`); built solvers are memoized by the spec's content in a
+32-entry LRU. `prefer_fleet=False`, and any spec the fleet does not take, go
+to the recursive solver run over the batch (`solvers/ilqr.py::_solve_impl`,
+the counterpart of the JAX package's vmap over its single-problem solve).
+Keypoint overrides and `record=True` are ROADMAP S2.5's open part, and raise
+until then.
 """
 
 import hashlib
@@ -13,12 +16,13 @@ from typing import Dict
 
 import torch
 
+from ilqr_planner_torch.solvers import ilqr
 from ilqr_planner_torch.solvers.fleet import fleet_supported, make_fleet_solver
 from ilqr_planner_torch.systems.spec import Spec
 
 __all__ = ["solve_batch"]
 
-_SLICE_2 = "is not ported yet (ROADMAP slice 2)"
+_LATER = "is not ported yet (ROADMAP S2.5)"
 
 
 def _fleet_x0s(spec: Spec, overrides, U0s):
@@ -71,32 +75,35 @@ def _spec_fingerprint(spec: Spec):
     return static, h.hexdigest()
 
 
-def _fleet_dispatch(spec: Spec, overrides) -> bool:
-    """True when the spec is in fleet scope. Raises on any override other
-    than the initial state: keypoint overrides are not ported yet."""
-    extra = tuple(sorted(set(overrides) - {"q0", "x0"}))
-    if extra:
-        raise NotImplementedError(f"keypoint overrides {extra} {_SLICE_2}")
-    return fleet_supported(spec)
-
-
 def solve_batch(spec: Spec, overrides: Dict[str, torch.Tensor], U0s,
                 nb_iter: int, line_search: bool = True, early_stop: bool = True,
                 prefer_fleet: bool = True, record: bool = False):
     """Solve a scenario batch of recursive-iLQR problems on the spec's device.
 
     U0s: [B, H-1, nu]. overrides: per-scenario Spec leaves with a leading
-    axis B; this slice takes only the initial state ('q0' / 'x0').
-    Returns an ILQRResult with a leading scenario axis.
+    axis B; only the initial state ('x0', or 'q0' when no 'x0' is given) is
+    taken so far. Returns an ILQRResult with a leading scenario axis.
+
+    A spec in the fleet's scope runs the lane-major fleet solver; the two
+    paths agree to rounding. `prefer_fleet=False` forces the recursive
+    solver (`solvers.ilqr`), which also takes every spec the fleet does not.
+    The route follows from the spec and `prefer_fleet` alone: an error in the
+    fleet's dispatch or solve propagates, it is never answered by the other
+    solver.
     """
     if record:
-        raise NotImplementedError(f"record=True {_SLICE_2}")
-    if not prefer_fleet:
-        raise NotImplementedError(f"the vmap path (prefer_fleet=False) {_SLICE_2}")
-    if not _fleet_dispatch(spec, overrides):
-        raise NotImplementedError(
-            f"the vmap fallback for kind={spec.kind!r} "
-            f"nb_deriv={spec.nb_deriv} {_SLICE_2}")
+        raise NotImplementedError(f"record=True {_LATER}")
+    extra = tuple(sorted(set(overrides) - {"q0", "x0"}))
+    if extra:
+        raise NotImplementedError(f"keypoint overrides {extra} {_LATER}")
+    U0s = torch.as_tensor(U0s, dtype=spec.dtype, device=spec.device)
+    if U0s.dim() != 3 or tuple(U0s.shape[1:]) != (spec.horizon - 1, spec.nu):
+        raise ValueError(f"U0s must be [B, {spec.horizon - 1}, {spec.nu}], got "
+                         f"{tuple(U0s.shape)}")
+    x0s = _fleet_x0s(spec, overrides, U0s)
+    if not (prefer_fleet and fleet_supported(spec)):
+        return ilqr._solve_impl(spec, x0s, U0s, int(nb_iter),
+                                bool(line_search), bool(early_stop))
     key = (_spec_fingerprint(spec), int(nb_iter), bool(line_search),
            bool(early_stop))
     solver = _fleet_cache_get(key)
@@ -104,5 +111,4 @@ def solve_batch(spec: Spec, overrides: Dict[str, torch.Tensor], U0s,
         solver = make_fleet_solver(spec, int(nb_iter), bool(line_search),
                                    bool(early_stop))
         _fleet_cache_put(key, solver)
-    U0s = torch.as_tensor(U0s, dtype=spec.dtype, device=spec.device)
-    return solver(_fleet_x0s(spec, overrides, U0s), U0s)
+    return solver(x0s, U0s)

@@ -1,0 +1,356 @@
+"""System functions: forward map, residuals, dynamics, costs.
+
+PyTorch counterpart of the JAX package's `systems/funcs.py`. Where the JAX
+functions take one sample and are batched with vmap, these take tensors with
+any leading batch axes and the small dimensions trailing (a state is
+[..., nx]); a step index `k` is an int, or an integer tensor that broadcasts
+against the leading axes (for a trajectory [B, H, nx], `torch.arange(H)`).
+
+Quirks of the reference that the results depend on:
+  * The control penalty u'Ru enters the cost *value* only at keypoint steps,
+    while the cost gradient and Hessian use R at every step.
+  * The joint-limit penalty L is a 0/1 diagonal scaled by `penalty`, and the
+    quadratic term in l_xx is L^T L = penalty^2.
+  * The final cost is the stage cost at step H-1 with u = 0.
+  * The zero-state guard of the position + orientation residual covers its
+    own rows only, not the time row of the time-optimal kind.
+  * The time-optimal double integrator's last column of B reads the
+    *updated* joint velocity.
+
+Sequential composition is not ported yet (ROADMAP Queue 1 item 9).
+"""
+
+import torch
+
+from ilqr_planner_torch.models.robot import robot_fk, robot_kin
+from ilqr_planner_torch.ops import sd
+from ilqr_planner_torch.systems.spec import Spec
+
+__all__ = [
+    "fx",
+    "fx_jac",
+    "residual",
+    "prec_at",
+    "dynamics",
+    "constant_AB",
+    "stage_cost",
+    "final_cost",
+    "cost_gradients",
+    "limit_terms",
+    "ctrl_cost",
+]
+
+
+def _no_sequential(spec: Spec):
+    if spec.kind == "sequential":
+        raise NotImplementedError(
+            "sequential specs are not ported yet (ROADMAP Queue 1 item 9)")
+
+
+def _mv(A, v):
+    """A [..., i, j] @ v [..., j] -> [..., i]."""
+    return (A * v[..., None, :]).sum(-1)
+
+
+# --------------------------------------------------------------------------
+# state unpacking
+# --------------------------------------------------------------------------
+
+def _unpack(spec: Spec, x):
+    """x -> (q, dq, t). dq is zero for first-order states; t is None unless
+    the kind is time-optimal."""
+    dof = spec.dof
+    q = x[..., :dof]
+    dq = x[..., dof:2 * dof] if spec.nb_deriv == 2 else torch.zeros_like(q)
+    t = x[..., -1] if spec.time_optimal else None
+    return q, dq, t
+
+
+# --------------------------------------------------------------------------
+# forward map f(x) and its Jacobian J [nQ, nx]
+# --------------------------------------------------------------------------
+
+def fx_jac(spec: Spec, x):
+    """(f(x) [..., nt], J [..., nQ, nx]) at the states x [..., nx].
+
+    J pairs the residual rows with state columns: geometric Jacobian rows
+    for the task-space kinds, the identity for joint space, and a unit
+    row/column for the time axis.
+    """
+    _no_sequential(spec)
+    dof, nx = spec.dof, spec.nx
+    batch = x.shape[:-1]
+
+    if spec.kind in ("joint", "joint_time"):
+        J = torch.eye(spec.nq_var, nx, dtype=x.dtype, device=x.device)
+        return x, J.expand(*batch, spec.nq_var, nx)
+
+    q, dq, t = _unpack(spec, x)
+    ks = robot_kin(spec.robot, q, dq)
+
+    if spec.kind == "point":
+        c = spec.robot.nb_car_dim
+        Jt = ks.J[..., :c, :]
+        if spec.nb_deriv == 1:
+            return ks.x, Jt
+        J = x.new_zeros(*batch, 2 * c, nx)
+        J[..., :c, :dof] = Jt
+        J[..., c:, dof:] = Jt
+        return torch.cat([ks.x, ks.dx], dim=-1), J
+
+    # posorn / posorn_time
+    J6 = ks.J
+    if spec.nb_deriv == 1:
+        fx = torch.cat([ks.x, ks.quat], dim=-1)
+        Jcore, core_rows = J6, 6
+    else:
+        dquat = sd.quat_rate(ks.quat, ks.w)
+        fx = torch.cat([ks.x, ks.quat, ks.dx, dquat], dim=-1)
+        core_rows = 12
+        Jcore = x.new_zeros(*batch, 12, 2 * dof)
+        Jcore[..., :6, :dof] = J6
+        Jcore[..., 6:, dof:] = J6
+
+    if spec.kind == "posorn":
+        return fx, Jcore
+
+    # posorn_time: append the time component (row/column of 1)
+    fx = torch.cat([fx, t[..., None]], dim=-1)
+    J = x.new_zeros(*batch, core_rows + 1, nx)
+    J[..., :core_rows, :Jcore.shape[-1]] = Jcore
+    J[..., core_rows, nx - 1] = 1.0
+    return fx, J
+
+
+def fx(spec: Spec, x):
+    """f(x) [..., nt] alone, equal bit for bit to `fx_jac(spec, x)[0]`: what
+    a line-search trial needs. The first-order task-space kinds walk the
+    chain without forming the Jacobian; a second-order forward map holds
+    velocities J dq, so it goes through `fx_jac`."""
+    _no_sequential(spec)
+    if spec.nb_deriv == 2 or spec.kind in ("joint", "joint_time"):
+        return fx_jac(spec, x)[0]
+    q, _, t = _unpack(spec, x)
+    pos, quat = robot_fk(spec.robot, q)
+    if spec.kind == "point":
+        return pos
+    f = torch.cat([pos, quat], dim=-1)
+    if spec.kind == "posorn":
+        return f
+    return torch.cat([f, t[..., None]], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# keypoint residuals
+# --------------------------------------------------------------------------
+
+def _safe_div(a, b):
+    return a / torch.where(b == 0, torch.ones_like(b), b)
+
+
+def _posorn_residual(spec: Spec, fx, k):
+    """Position + orientation residual r_p = p* - p, r_o = -2 E(q*)
+    logMap(q*, q), with the dead-zone shrinkage applied through the per-step
+    radius/threshold arrays (zero radius/threshold: a plain keypoint);
+    second order appends dp* - dp and -2 E(q*)(dq* - transport(dq, q -> q*)).
+    """
+    c = spec.robot.nb_car_dim
+    mu_k = spec.mu[k]
+    p_t, q_t = mu_k[..., :c], mu_k[..., c:c + 4]
+    p, quat = fx[..., :c], fx[..., c:c + 4]
+    E = sd.dquat_to_dx_jac(q_t)
+    r_p = p_t - p
+    r_o = -2.0 * _mv(E, sd.log_map(q_t, quat))
+
+    # Dead zones, on the position/orientation residuals only (not the
+    # velocity parts).
+    radius = spec.pos_radius[k]
+    nrm = torch.sqrt((r_p * r_p).sum(-1))
+    shrunk = _safe_div(r_p, nrm[..., None]) * (nrm - radius)[..., None]
+    r_p = torch.where((nrm <= radius)[..., None], torch.zeros_like(r_p), shrunk)
+    th = spec.orn_thresh[k]
+    r_o = torch.where(r_o.abs() <= th, torch.zeros_like(r_o),
+                      r_o - torch.sign(r_o) * th)
+
+    parts = [r_p, r_o]
+    if spec.nb_deriv == 2:
+        dp_t, dq_t = mu_k[..., c + 4:2 * c + 4], mu_k[..., 2 * c + 4:2 * c + 8]
+        dp, dquat = fx[..., c + 4:2 * c + 4], fx[..., 2 * c + 4:2 * c + 8]
+        parts += [dp_t - dp,
+                  -2.0 * _mv(E, dq_t - sd.transport(dquat, quat, q_t))]
+    return torch.cat(parts, dim=-1)
+
+
+def residual(spec: Spec, fx, k):
+    """Keypoint residual e(f(x), k) [..., nQ]; zero when step k has no
+    keypoint, or (position + orientation rows only) when the forward map is
+    exactly zero."""
+    _no_sequential(spec)
+    if spec.kind.startswith("posorn"):
+        fx_po = fx[..., :spec.nt - 1] if spec.time_optimal else fx
+        core = _posorn_residual(spec, fx_po, k)
+        zero_state = (fx_po == 0).all(-1)
+        core = torch.where(zero_state[..., None], torch.zeros_like(core), core)
+        if spec.time_optimal:
+            # the time row is appended unguarded
+            r_t = spec.mu[k][..., -1] - fx[..., -1]
+            core = torch.cat([core, r_t[..., None]], dim=-1)
+        e = core
+    else:  # joint / joint_time / point: plain unguarded Euclidean residual
+        e = spec.mu[k] - fx
+    return e * spec.kp_mask[k][..., None]
+
+
+def prec_at(spec: Spec, k):
+    """Precision [..., nQ, nQ] at step k."""
+    _no_sequential(spec)
+    return spec.prec[k]
+
+
+# --------------------------------------------------------------------------
+# joint limits
+# --------------------------------------------------------------------------
+
+def limit_terms(spec: Spec, x):
+    """(L diagonal, violation q), each [..., nx]: L entries equal `penalty`
+    where the (weighted) state exceeds its bounds; q = bound - x there,
+    else zero."""
+    over = x > spec.state_max
+    under = x < spec.state_min
+    active = (spec.limit_weight != 0) & (over | under)
+    zero = torch.zeros_like(x)
+    Ld = torch.where(active, spec.penalty.to(x.dtype), zero)
+    ql = torch.where(over, spec.state_max - x,
+                     torch.where(under, spec.state_min - x, zero))
+    return Ld, torch.where(active, ql, zero)
+
+
+def _limit_triplet(spec: Spec, x):
+    """(cost [...], L^T q [..., nx], diag(L^T L) [..., nx])."""
+    _no_sequential(spec)
+    if not spec.limits_set:
+        zero = torch.zeros_like(x)
+        return zero.sum(-1), zero, zero
+    Ld, ql = limit_terms(spec, x)
+    return (Ld * ql * ql).sum(-1), Ld * ql, Ld * Ld
+
+
+def ctrl_cost(spec: Spec, u, k):
+    """Control penalty as counted in the cost *value*: u^T R u only where
+    step k has a keypoint."""
+    _no_sequential(spec)
+    return spec.kp_mask[k] * (spec.Rt * u * u).sum(-1)
+
+
+# --------------------------------------------------------------------------
+# stage / terminal cost
+# --------------------------------------------------------------------------
+
+def stage_cost(spec: Spec, x, fx, u, k):
+    """cost(x, u, k) = e^T P e + [kp] u^T R u + q_L^T L q_L."""
+    e = residual(spec, fx, k)
+    c = (e * _mv(prec_at(spec, k), e)).sum(-1) + ctrl_cost(spec, u, k)
+    lim_c, _, _ = _limit_triplet(spec, x)
+    return c + lim_c
+
+
+def final_cost(spec: Spec, x, fx):
+    """cost_F = the stage cost at k = horizon-1 with u = 0."""
+    u0 = x.new_zeros(*x.shape[:-1], spec.nu)
+    return stage_cost(spec, x, fx, u0, spec.horizon - 1)
+
+
+def cost_gradients(spec: Spec, x, fx, J, u, k):
+    """(l_x, l_u, l_xx) of the Gauss-Newton quadratization:
+    l_x = -J^T P e - L^T q, l_xx = J^T P J + L^T L, l_u = R u."""
+    e = residual(spec, fx, k)
+    P = prec_at(spec, k)
+    _, Lq, L2 = _limit_triplet(spec, x)
+    Jt = J.transpose(-1, -2)
+    l_x = -_mv(Jt, _mv(P, e)) - Lq
+    l_xx = Jt @ P @ J + torch.diag_embed(L2)
+    l_u = spec.Rt * u
+    return l_x, l_u, l_xx
+
+
+# --------------------------------------------------------------------------
+# dynamics
+# --------------------------------------------------------------------------
+
+def constant_AB(spec: Spec, dtype):
+    """(A [nx, nx], B [nx, nu]) for the state-independent integrators, or
+    None for the time-optimal kinds, whose B depends on (x, u)."""
+    _no_sequential(spec)
+    if spec.time_optimal:
+        return None
+    dof, nx, nu = spec.dof, spec.nx, spec.nu
+    dev = spec.device
+    dt = spec.dt.to(dtype)
+    eye = torch.eye(dof, dtype=dtype, device=dev)
+    if spec.nb_deriv == 1:
+        return (torch.eye(nx, dtype=dtype, device=dev),
+                dt * torch.eye(nx, nu, dtype=dtype, device=dev))
+    A = torch.eye(nx, dtype=dtype, device=dev)
+    A[:dof, dof:] = dt * eye
+    B = torch.cat([0.5 * dt * dt * eye, dt * eye], dim=0)
+    return A, B
+
+
+def _next_state(spec: Spec, x, u):
+    """One integrator step x' [..., nx] (the state part of `dynamics`)."""
+    dof = spec.dof
+    if not spec.time_optimal:
+        dt = spec.dt.to(x.dtype)
+        if spec.nb_deriv == 1:
+            return x + dt * u
+        q, dq = x[..., :dof], x[..., dof:]
+        return torch.cat([q + dt * dq + 0.5 * dt * dt * u, dq + dt * u], dim=-1)
+    s = u[..., -1:]
+    dt = s * s
+    t = x[..., -1:]
+    cmd = u[..., :-1]
+    if spec.nb_deriv == 1:
+        return torch.cat([x[..., :dof] + dt * cmd, t + dt], dim=-1)
+    q, dq = x[..., :dof], x[..., dof:2 * dof]
+    return torch.cat([q + dt * dq + 0.5 * dt * dt * cmd, dq + dt * cmd, t + dt],
+                     dim=-1)
+
+
+def dynamics(spec: Spec, x, u):
+    """One integrator step: (x' [..., nx], A [..., nx, nx], B [..., nx, nu]).
+
+    Velocity control (nb_deriv=1): q' = q + dt u; A = I, B = dt I.
+    Acceleration control (nb_deriv=2): semi-implicit Euler q' = q + dt dq +
+    dt^2/2 u, dq' = dq + dt u; A = [[I, dt I], [0, I]], B = [[dt^2/2 I],
+    [dt I]]. The time-optimal kinds use dt = s^2 with s = u[-1] and the
+    chain-rule last column of B.
+    """
+    _no_sequential(spec)
+    dof, nx, nu = spec.dof, spec.nx, spec.nu
+    batch = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
+    xn = _next_state(spec, x, u)
+
+    if not spec.time_optimal:
+        A, B = constant_AB(spec, x.dtype)
+        return xn, A.expand(*batch, nx, nx), B.expand(*batch, nx, nu)
+
+    # time-optimal: s = sqrt(dt) is the last control component
+    eye = torch.eye(dof, dtype=x.dtype, device=x.device)
+    s = u[..., -1]
+    dt = (s * s)[..., None, None]
+    cmd = u[..., :-1]
+    A = torch.eye(nx, dtype=x.dtype, device=x.device).repeat(*batch, 1, 1)
+    B = x.new_zeros(*batch, nx, nu)
+    if spec.nb_deriv == 1:
+        B[..., :dof, :dof] = dt * eye
+        B[..., :dof, -1] = 2.0 * s[..., None] * cmd
+        B[..., -1, -1] = 2.0 * s
+        return xn, A, B
+    A[..., :dof, dof:2 * dof] = dt * eye
+    B[..., :dof, :dof] = 0.5 * dt * dt * eye
+    B[..., dof:2 * dof, :dof] = dt * eye
+    dqn = xn[..., dof:2 * dof]       # the UPDATED velocity
+    B[..., :dof, -1] = 2.0 * s[..., None] * dqn + 2.0 * (s ** 3)[..., None] * cmd
+    B[..., dof:2 * dof, -1] = 2.0 * s[..., None] * cmd
+    B[..., -1, -1] = 2.0 * s
+    return xn, A, B

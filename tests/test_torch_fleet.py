@@ -192,7 +192,5 @@ def test_out_of_scope_raises_not_implemented():
     U0s = np.zeros((2, H - 1, 7))
     with pytest.raises(NotImplementedError, match="keypoint overrides"):
         solve_batch(spec, {"mu": np.zeros((2, H, 7))}, U0s, 2)
-    with pytest.raises(NotImplementedError, match="vmap"):
-        solve_batch(spec, {}, U0s, 2, prefer_fleet=False)
     with pytest.raises(NotImplementedError, match="record"):
         solve_batch(spec, {}, U0s, 2, record=True)
