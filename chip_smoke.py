@@ -23,7 +23,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
   2. each kernel against its plain PyTorch twin at its path's shapes,
      float64 (the correctness gate, 1e-9 relative) and float32, with
      CUDA-event timings and the least time the card could take (bytes or
-     operations bound);
+     operations bound); the two kernels that run several threads a lane
+     (segment_backward_2nd, rollout_time1) also with their launch (blocks,
+     threads a block, shared memory, lanes an SM) and at ragged batches
+     (below one block's lanes; not a multiple of them) on a short horizon,
+     with keypoints at the first and the last step;
   3. each path end to end: a first solve with every launch count set to 0
      just before it and read just after (each kernel of the path must have
      launched: once per backward sweep, and for the rollout once per
@@ -44,7 +48,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
   7. a torch.profiler trace of a window of each path's solve (its initial
      rollout and first two iterations, each a backward sweep and a line
      search): device busy time, its share of the window's unprofiled wall
-     time, the top kernels (the full table goes to
+     time, the top kernels, and the device time a launch of the path's
+     hand-written kernels on the solve's own data (the full table goes to
      chiprun_out/profile_<path>.txt).
 Then the kernel table and, last, {"ok": true, "device": {...}}.
 
@@ -293,6 +298,18 @@ def sweep2_flops(kind, n, m, hm1, n_kp, batch):
     return batch * (hm1 * per_step + n_kp * n * (n + 1) // 2)
 
 
+def rollout_inputs(n, hm1, batch):
+    """Seeded rollout inputs -> (Ks, ds, Xref, Uref, x0): a reference
+    trajectory that drifts like a solve's, step controls s in [0.05, 0.1)."""
+    rng = np.random.default_rng(2)
+    Xref = np.cumsum(np.concatenate([0.05 * rng.normal(size=(1, n, batch)),
+                                     0.02 * rng.normal(size=(hm1, n, batch))]), 0)
+    Uref = 0.05 * rng.normal(size=(hm1, n, batch))
+    Uref[:, -1] = 0.05 + 0.05 * np.abs(Uref[:, -1])
+    return (0.1 * rng.normal(size=(hm1, n, n, batch)),
+            0.05 * rng.normal(size=(hm1, n, batch)), Xref, Uref, Xref[0].copy())
+
+
 def rollout_flops(n, hm1, batch):
     """Operations of one time-optimal rollout, counted from the loops of
     csrc/rollout_time1.cu."""
@@ -402,8 +419,10 @@ def bound(nbytes, flops):
             "library_note": "no single PyTorch call computes this recursion"}
 
 
-def cuda_ms(torch, fn, reps=10, warm=2):
-    """Median CUDA-event time of fn() in ms over `reps` timed calls."""
+def cuda_ms(torch, fn, reps=10, warm=2, inner=1):
+    """Median CUDA-event time of fn() in ms over `reps` timed runs of `inner`
+    calls back to back (inner > 1 for a kernel of tens of microseconds: with
+    one call between the events, the host's time to enqueue it counts)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -412,10 +431,11 @@ def cuda_ms(torch, fn, reps=10, warm=2):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
 
 
@@ -445,9 +465,13 @@ def phase_device_and_build():
               for mod, (lib, report) in zip(mods, built)}})
 
 
-def _kernel_vs_twin(torch, name, shapes, args_np, call, twin, twin_reps):
+def _kernel_vs_twin(torch, name, shapes, args_np, call, twin, twin_reps,
+                    inner=1):
     """Hold call(*args) against twin(*args) in float64 (gate) and float32;
-    CUDA-event ms of each."""
+    unless twin_reps is 0, CUDA-event ms of each, the kernel's over runs of
+    `inner` calls back to back and, where inner > 1, of one call too (one
+    call between two events counts the host's time in the wrapper, which a
+    run of calls hides behind the kernels once they are longer than it)."""
     out = {"phase": "kernel_vs_twin", "name": name, "shapes": shapes}
     for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
         args = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in args_np]
@@ -461,9 +485,14 @@ def _kernel_vs_twin(torch, name, shapes, args_np, call, twin, twin_reps):
         out[f"max_rel_err_{tag}"] = abs_err / scale
         out[f"finite_{tag}"] = all(bool(torch.isfinite(g).all()) for g in got)
         del got, ref
-        out[f"kernel_ms_{tag}"] = cuda_ms(torch, lambda: call(*args))
-        out[f"twin_ms_{tag}"] = cuda_ms(torch, lambda: twin(*args),
-                                        reps=twin_reps, warm=1)
+        if twin_reps:
+            out[f"kernel_ms_{tag}"] = cuda_ms(torch, lambda: call(*args),
+                                              inner=inner)
+            if inner > 1:
+                out[f"kernel_ms_one_launch_{tag}"] = cuda_ms(
+                    torch, lambda: call(*args))
+            out[f"twin_ms_{tag}"] = cuda_ms(torch, lambda: twin(*args),
+                                            reps=twin_reps, warm=1)
         del args
         torch.cuda.empty_cache()
     return out
@@ -477,6 +506,28 @@ def _gate_kernel(out):
         fail(f"{out['name']}: kernel vs twin float64 relative error "
              f"{out['max_rel_err_f64']} > {F64_REL_GATE}")
     return out
+
+
+def _launch_of(torch, name, planned, built):
+    """The launch of a kernel in both types: what the wrapper plans
+    (`launch_geometry`: needs no card) beside what the built library says
+    (`kernel_geometry`: its own constants, and the resident blocks an SM by
+    the CUDA occupancy calculator). Fails where the two disagree."""
+    launch = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        plan, lib = planned(dtype), built(dtype)
+        if any(plan[k] != lib[k] for k in ("blocks", "threads", "smem_bytes")):
+            fail(f"{name}: the wrapper plans the launch {plan}, the library "
+                 f"launches {lib}")
+        resident = lib["resident_blocks_per_sm"]
+        launch[tag] = {**plan, "resident_blocks_per_sm": resident,
+                       "lanes_per_sm_resident": resident * plan["lanes_per_block"]}
+    return launch
+
+
+# Ragged batches for the kernels that run several threads a lane: below one
+# block's 32 lanes, and the path's batch plus 37; a short horizon.
+RAGGED_HM1 = 12
 
 
 def phase_kernels_vs_twins(torch):
@@ -513,26 +564,49 @@ def phase_kernels_vs_twins(torch):
                           "B": cfg["B"], "kp_inner": kp},
             sweep_inputs(n, m, hm1, len(kp), cfg["B"], seed=1), call,
             lambda *a: sb2.segment_backward_2nd_reference(kind, *a, kp, dt, Rt),
-            3)
+            2, inner=5 if kind == "second" else 1)
         out.update(bound(sweep_bytes(n, hm1, len(kp), cfg["B"], 4, m),
                          sweep2_flops(kind, n, m, hm1, len(kp), cfg["B"])))
+        if kind == "second":
+            out["launch"] = _launch_of(
+                torch, name, lambda dt_: sb2.launch_geometry(kind, cfg["B"], dt_),
+                lambda dt_: sb2.kernel_geometry(kind, cfg["B"], dt_))
         res[kind] = _gate_kernel(out)
 
+    # 'second' at ragged batches; keypoints at the first and the last step
+    n, m = sb2.KERNEL_WIDTHS["second"]
+    Rt = [1e-5] * m
+    for batch, kp in ((45, (0, RAGGED_HM1 - 1)),
+                      (PATHS["posorn2nd"]["B"] + 37, (5,))):
+        _gate_kernel(_kernel_vs_twin(
+            torch, "segment_backward_2nd",
+            {"kind": "second", "ragged": True, "n": n, "m": m,
+             "H": RAGGED_HM1 + 1, "B": batch, "kp_inner": kp},
+            sweep_inputs(n, m, RAGGED_HM1, len(kp), batch, seed=3),
+            lambda *a: sb2.segment_backward_2nd(*a, kp, 0.01, Rt),
+            lambda *a: sb2.segment_backward_2nd_reference("second", *a, kp,
+                                                          0.01, Rt), 0))
+
+    # the rollout is tens of microseconds, less than its wrapper takes on the
+    # host: its device time is the profiled one in the kernel table
     cfg = PATHS["timeopt"]
     n, hm1, Bt = cfg["n"], cfg["H"] - 1, cfg["B"]
-    rng = np.random.default_rng(2)
-    Xref = np.cumsum(np.concatenate([0.05 * rng.normal(size=(1, n, Bt)),
-                                     0.02 * rng.normal(size=(hm1, n, Bt))]), 0)
-    Uref = 0.05 * rng.normal(size=(hm1, n, Bt))
-    Uref[:, -1] = 0.05 + 0.05 * np.abs(Uref[:, -1])
-    args = (0.1 * rng.normal(size=(hm1, n, n, Bt)),
-            0.05 * rng.normal(size=(hm1, n, Bt)), Xref, Uref, Xref[0].copy())
     out = _kernel_vs_twin(
         torch, "rollout_time1", {"n": n, "H": cfg["H"], "B": Bt, "alpha": 0.5},
-        args, lambda *a: rt1.rollout_time1(0.5, *a),
-        lambda *a: rt1.rollout_time1_reference(0.5, *a), 5)
+        rollout_inputs(n, hm1, Bt), lambda *a: rt1.rollout_time1(0.5, *a),
+        lambda *a: rt1.rollout_time1_reference(0.5, *a), 5, inner=10)
     out.update(bound(rollout_bytes(n, hm1, Bt, 4), rollout_flops(n, hm1, Bt)))
+    out["launch"] = _launch_of(torch, "rollout_time1",
+                               lambda dt_: rt1.launch_geometry(Bt, dt_),
+                               lambda dt_: rt1.kernel_geometry(Bt, dt_))
     res["rollout_time1"] = _gate_kernel(out)
+    for batch in (45, Bt + 37):
+        _gate_kernel(_kernel_vs_twin(
+            torch, "rollout_time1", {"ragged": True, "n": n, "H": RAGGED_HM1 + 1,
+                                     "B": batch, "alpha": 0.5},
+            rollout_inputs(n, RAGGED_HM1, batch),
+            lambda *a: rt1.rollout_time1(0.5, *a),
+            lambda *a: rt1.rollout_time1_reference(0.5, *a), 0))
 
     # the dense Riccati sweep: the recursive path's batch and the flagship's,
     # precisions at two steps (the paths' own pattern) and at every step
@@ -592,6 +666,12 @@ def phase_riccati_rounding(torch):
 
 KERNELS = ("segment_backward", "segment_backward_2nd",
            "segment_backward_time1", "rollout_time1", "riccati")
+# the __global__ function behind each, as the profiler names it
+KERNEL_FUNCTIONS = {"segment_backward_kernel": "segment_backward",
+                    "second_kernel": "segment_backward_2nd",
+                    "time1_kernel": "segment_backward_time1",
+                    "rollout_kernel": "rollout_time1",
+                    "riccati_kernel": "riccati"}
 
 
 def _reset_counts():
@@ -949,12 +1029,16 @@ def profile_window(torch, path, run):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -dev_us(e))[:8]
+    ours = {name: [dev_us(e) / 1e3 / e.count, e.count] for e in kernels
+            for name in KERNEL_FUNCTIONS if f"::{name}<" in e.key}
     emit({"phase": "profile", "path": path, "iterations": PROFILE_ITERS,
+          "hand_written_kernels_ms_a_launch": ours,
           "line_search_trials": counts["trials"] + counts["recursive_trials"],
           "unprofiled_wall_ms": 1e3 * wall_s, "device_busy_ms": busy_ms,
           "device_launches": sum(e.count for e in kernels),
           "busy_share_of_unprofiled_wall": busy_ms / 1e3 / wall_s,
           "top_kernels": [[e.key[:80], dev_us(e) / 1e3, e.count] for e in top]})
+    return ours
 
 
 def main():
@@ -987,8 +1071,11 @@ def main():
         timed("cross_checks", phase_cross_check, torch, path)
     timed("dense_vs_sparse", phase_dense_vs_sparse, torch)
     timed("riccati_rounding", phase_riccati_rounding, torch)
+    profiled = {}           # kernel -> device ms a launch in its path's window
     for path, (_, run) in e2e.items():
-        timed("profiles", profile_window, torch, path, run)
+        for fn, (ms, _) in timed("profiles", profile_window, torch, path,
+                                 run).items():
+            profiled[KERNEL_FUNCTIONS[fn]] = ms
 
     def row(name, src, replaces, kv_key, launches):
         k = kv[kv_key]
@@ -1000,7 +1087,11 @@ def main():
                 "ms": k["kernel_ms_f32"], "plain_ms": k["twin_ms_f32"],
                 "ms_f64": k["kernel_ms_f64"], "plain_ms_f64": k["twin_ms_f64"],
                 "bound_ms": k["bound_ms_f32"], "bound_by": k["bound_by"],
-                "library_ms": None}
+                "library_ms": None,
+                "profiled_device_ms": profiled.get(name),
+                **{key: k[f"kernel_{key}"] for key in
+                   ("ms_one_launch_f32", "ms_one_launch_f64")
+                   if f"kernel_{key}" in k}}
 
     pallas = "ilqr_planner_tpu/ops/pallas_kernels/"
     riccati_row = row("riccati", "riccati.cu", pallas + "riccati.py:258",

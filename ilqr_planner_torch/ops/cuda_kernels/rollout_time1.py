@@ -7,10 +7,12 @@ PyTorch counterpart of the JAX package's
 steps of
     du = K (x - xo) + alpha d,   u = uo + du,
     q' = q + s^2 u_q,            t' = t + s^2        (s = u[m-1])
-one thread per scenario lane, the state in registers, and writes x', u and
-||du||^2 per step. The caller assembles the trial's cost from the returned
-trajectory. `rollout_time1_reference` is the same per-step math over [n, B]
-tensors with a Python loop over steps.
+eight threads a scenario lane (a warp a row of the gains), the state in
+registers, the inputs of the next steps in flight through a ring in shared
+memory, and writes x', u and ||du||^2 per step (`launch_geometry` gives the
+blocks, threads and shared memory of a launch). The caller assembles the
+trial's cost from the returned trajectory. `rollout_time1_reference` is
+the same per-step math over [n, B] tensors with a Python loop over steps.
 
 The kernel reads the gains, the feed-forward terms and the reference
 trajectory where they lie: the JAX package's packing of them into one
@@ -26,7 +28,7 @@ import torch
 from ilqr_planner_torch.ops.cuda_kernels import nvcc_build
 
 __all__ = ["rollout_time1", "rollout_time1_reference", "build", "LAUNCHES",
-           "KERNEL_N"]
+           "KERNEL_N", "launch_geometry", "kernel_geometry"]
 
 # Kernel launches so far: one per CUDA call of `rollout_time1`.
 LAUNCHES = 0
@@ -34,7 +36,23 @@ LAUNCHES = 0
 # 7-DoF arm plus the time state.
 KERNEL_N = 8
 
+# The launch constants of `csrc/rollout_time1.cu`: lanes a block, threads a
+# lane (one a row of the gains), step tiles in the shared-memory ring.
+LANES_PER_BLOCK = 32
+THREADS_PER_LANE = KERNEL_N
+RING_STAGES = 6
+
 SOURCE = nvcc_build.CSRC / "rollout_time1.cu"
+
+
+def launch_geometry(B, dtype):
+    """The kernel's launch at batch B (`nvcc_build.launch_geometry`: blocks,
+    threads, shared memory a block, lanes an SM). Needs no card."""
+    n = KERNEL_N
+    # a step's tile (gains, d, xo, uo) in each ring stage; u, du of two steps
+    values = RING_STAGES * (n * n + 3 * n) + 4 * n
+    return nvcc_build.launch_geometry(B, LANES_PER_BLOCK, THREADS_PER_LANE,
+                                      values, torch.finfo(dtype).bits // 8)
 
 
 def rollout_time1_reference(alpha, Ks, ds, Xref, Uref, x0):
@@ -63,12 +81,22 @@ _ENTRIES = {f"rollout_time1_{tag}": [ctypes.c_void_p] * 5 + [alpha_type]
             + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             for tag, alpha_type in (("f32", ctypes.c_float),
                                     ("f64", ctypes.c_double))}
+_ENTRIES["rollout_time1_geometry"] = (
+    [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)])
 
 
 def build():
     """Compile `csrc/rollout_time1.cu` for sm_90a (once per source content)
     -> (path of the shared library, ptxas report)."""
     return nvcc_build.build(SOURCE)
+
+
+def kernel_geometry(B, dtype):
+    """What the built kernel itself launches at batch B, asked of the
+    library on the card (`nvcc_build.kernel_geometry`); `launch_geometry`
+    must agree on blocks, threads and shared memory."""
+    fn = nvcc_build.load(SOURCE, _ENTRIES).rollout_time1_geometry
+    return nvcc_build.kernel_geometry(fn, torch.finfo(dtype).bits // 8, B)
 
 
 def _check(Ks, ds, Xref, Uref, x0):

@@ -5,9 +5,12 @@ wrapper.
 PyTorch counterpart of the JAX package's
 `ops/pallas_kernels/segment_backward_2nd.py` (the Pallas TPU kernels
 `segment_backward_pallas_2nd` and `segment_backward_pallas_time1`), whose
-per-step body is the fleet solver's `_q_terms` + `_gains_value`. The kernel
-(`csrc/segment_backward_2nd.cu`) runs all H-1 steps in one launch, one
-thread per scenario lane. `segment_backward_2nd_reference` is the same
+per-step body is the fleet solver's `_q_terms` + `_gains_value`. The kernels
+(`csrc/segment_backward_2nd.cu`) run all H-1 steps in one launch: 'second'
+with sixteen threads a scenario lane (a warp a column of the system, the
+next steps' rows in flight), 'time1' with one thread a lane;
+`launch_geometry` gives the blocks, threads and shared memory of a launch.
+`segment_backward_2nd_reference` is the same
 per-step math over [n, n, B] tensors with a Python loop over steps:
 `q_terms` (the Q blocks of the kind's structured A and B), then
 `gains_value` (Gauss-Jordan without pivoting in the JAX package's
@@ -27,14 +30,44 @@ from ilqr_planner_torch.ops.cuda_kernels import nvcc_build
 
 __all__ = ["segment_backward_2nd", "segment_backward_time1",
            "segment_backward_2nd_reference", "q_terms", "gains_value",
-           "solve_aug", "build", "LAUNCHES", "KERNEL_WIDTHS"]
+           "solve_aug", "build", "LAUNCHES", "KERNEL_WIDTHS",
+           "launch_geometry", "kernel_geometry"]
 
 # Kernel launches so far, by kind: one per CUDA call of the kind's wrapper.
 LAUNCHES = {"second": 0, "time1": 0}
 # (n, m) each kind is instantiated for: the 7-DoF arm.
 KERNEL_WIDTHS = {"second": (14, 7), "time1": (8, 8)}
 
+# The launch constants of `csrc/segment_backward_2nd.cu`: lanes a block
+# (both kinds), threads a lane, and for 'second' the steps whose streamed
+# rows are in flight.
+LANES_PER_BLOCK = 32
+THREADS_PER_LANE = {"second": 16, "time1": 1}
+SECOND_STEPS_AHEAD = 2
+
 SOURCE = nvcc_build.CSRC / "segment_backward_2nd.cu"
+
+
+def _smem_values(kind):
+    """Values a lane the kind's kernel keeps in shared memory."""
+    n, m = KERNEL_WIDTHS[kind]
+    tri = n * (n + 1) // 2
+    if kind == "second":
+        # two carries (P in full, p), K | d, the pivot columns with
+        # 1 / pivot, the ring of streamed rows (U, lx, L2), one keypoint
+        # Hessian (upper triangle)
+        return (2 * (n * n + n) + m * (n + 1) + m * (m + 1)
+                + (SECOND_STEPS_AHEAD + 1) * (2 * n + m) + tri)
+    # two carries (P upper triangle, p), the system and [Qux | Qu]
+    return 2 * (tri + n) + m * m + m * (n + 1)
+
+
+def launch_geometry(kind, B, dtype):
+    """The launch of the kind's kernel at batch B
+    (`nvcc_build.launch_geometry`: blocks, threads, shared memory a block,
+    lanes an SM). Needs no card."""
+    return nvcc_build.launch_geometry(B, LANES_PER_BLOCK, THREADS_PER_LANE[kind],
+                                      _smem_values(kind), torch.finfo(dtype).bits // 8)
 
 
 # ---------------------------------------------------------------------------
@@ -167,12 +200,23 @@ def segment_backward_2nd_reference(kind, P0, p0, L2, lx, U, gxx, kp_steps, dt,
 _ENTRIES = {f"segment_backward_{kind}_{tag}":
             [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             for kind in KERNEL_WIDTHS for tag in ("f32", "f64")}
+_ENTRIES["segment_backward_2nd_geometry"] = (
+    [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
 
 
 def build():
     """Compile `csrc/segment_backward_2nd.cu` for sm_90a (once per source
     content) -> (path of the shared library, ptxas report)."""
     return nvcc_build.build(SOURCE)
+
+
+def kernel_geometry(kind, B, dtype):
+    """What the built kernel of the kind itself launches at batch B, asked
+    of the library on the card (`nvcc_build.kernel_geometry`);
+    `launch_geometry` must agree on blocks, threads and shared memory."""
+    fn = nvcc_build.load(SOURCE, _ENTRIES).segment_backward_2nd_geometry
+    return nvcc_build.kernel_geometry(fn, list(KERNEL_WIDTHS).index(kind),
+                                      torch.finfo(dtype).bits // 8, B)
 
 
 def _check(kind, P0, p0, L2, lx, U, gxx, kp_steps):

@@ -1,0 +1,152 @@
+"""Time design variants of the two redesigned kernels on one card.
+
+    python3 tools/kernel_variants.py [NAME=ROOT ...]
+
+Builds `csrc/segment_backward_2nd.cu` ('second', n=14, m=7, H=400, B=4096)
+and `csrc/rollout_time1.cu` (n=m=8, H=100, B=2048) of this checkout with
+several settings of their compile-time constants (-D: the steps of rows in
+flight for the sweep; the lanes a block and the ring stages for the
+rollout), and, for every NAME=ROOT given, the sources of another checkout
+of this repository at ROOT (for example `parent=_archive/parent`, the
+parent commit unpacked with `git archive`), which have the same C entry
+points. Every variant
+runs on the seeded inputs of `chip_smoke.py` at the paths' shapes: float64
+against the plain twin (relative error), then CUDA-event medians in float32
+and float64 (one launch between the events, and ten back to back, which
+leaves the host's enqueue time out), in the order of the list and once more
+in reverse, so that each variant has two medians from one call. Prints the card's name and
+power limit, each variant's ptxas report and one JSON line a variant.
+"""
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import chip_smoke as cs  # noqa: E402
+from ilqr_planner_torch.ops.cuda_kernels import nvcc_build  # noqa: E402
+from ilqr_planner_torch.ops.cuda_kernels import rollout_time1 as rt1  # noqa: E402
+from ilqr_planner_torch.ops.cuda_kernels import segment_backward_2nd as sb2  # noqa: E402
+
+P = ctypes.c_void_p
+SWEEP_VARIANTS = [("ahead2", ()), ("ahead1", ("SECOND_AHEAD=1",))]
+ROLLOUT_VARIANTS = [("lanes32_stages6", ()),
+                    ("lanes32_stages2", ("ROLLOUT_STAGES=2",)),
+                    ("lanes32_stages3", ("ROLLOUT_STAGES=3",)),
+                    ("lanes32_stages8", ("ROLLOUT_STAGES=8",)),
+                    ("lanes16_stages6", ("ROLLOUT_LANES=16",)),
+                    ("lanes16_stages12", ("ROLLOUT_LANES=16", "ROLLOUT_STAGES=12"))]
+TAGS = ((torch.float64, "f64"), (torch.float32, "f32"))
+INNER = 10    # launches between two events of a back-to-back timing
+
+
+def load_all(kernel, variants):
+    """Build every (name, source, defines), all nvcc runs started together
+    -> [(name, library)]."""
+    with ThreadPoolExecutor(len(variants)) as ex:
+        built = list(ex.map(lambda v: nvcc_build.build(v[1], v[2]), variants))
+    for (name, source, defines), (_, report) in zip(variants, built):
+        print(json.dumps({"kernel": kernel, "variant": name, "source": str(source),
+                          "defines": defines,
+                          "ptxas": nvcc_build.ptxas_summary(report)}), flush=True)
+    return [(v[0], ctypes.CDLL(str(lib))) for v, (lib, _) in zip(variants, built)]
+
+
+def sweep_case():
+    cfg = cs.PATHS["posorn2nd"]
+    n, m, hm1, kp, B = cfg["n"], cfg["m"], cfg["H"] - 1, cfg["kp_inner"], cfg["B"]
+    Rt = [1e-5] * m
+    args_np = cs.sweep_inputs(n, m, hm1, len(kp), B, seed=1)
+    case = {}
+    for dtype, tag in TAGS:
+        args = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in args_np]
+        slots, params = sb2._launch_consts("second", hm1, kp, 0.01, 1e-6, tuple(Rt),
+                                           dtype, args[0].device)
+        ref = sb2.segment_backward_2nd_reference("second", *args, kp, 0.01, Rt)
+        out = (torch.empty((hm1, m, n, B), dtype=dtype, device="cuda"),
+               torch.empty((hm1, m, B), dtype=dtype, device="cuda"))
+        case[tag] = (args + [slots, params], out, ref, (hm1, B))
+    return case
+
+
+def rollout_case():
+    cfg = cs.PATHS["timeopt"]
+    n, hm1, B = cfg["n"], cfg["H"] - 1, cfg["B"]
+    args_np = cs.rollout_inputs(n, hm1, B)
+    case = {}
+    for dtype, tag in TAGS:
+        args = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in args_np]
+        ref = rt1.rollout_time1_reference(0.5, *args)
+        out = tuple(torch.empty_like(r) for r in ref)
+        case[tag] = (args, out, ref, (hm1, B))
+    return case
+
+
+def entry(lib, kernel, tag):
+    if kernel == "sweep":
+        fn = getattr(lib, f"segment_backward_second_{tag}")
+        fn.argtypes = [P] * 10 + [ctypes.c_int, ctypes.c_int, P]
+    else:
+        fn = getattr(lib, f"rollout_time1_{tag}")
+        fn.argtypes = ([P] * 5 + [ctypes.c_float if tag == "f32" else ctypes.c_double]
+                       + [P] * 3 + [ctypes.c_int, ctypes.c_int, P])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def caller(fn, kernel, args, out, dims):
+    ptrs = [a.data_ptr() for a in args]
+    outs = [o.data_ptr() for o in out]
+    if kernel == "rollout":
+        ptrs = ptrs + [0.5]
+
+    def call():
+        err = fn(*ptrs, *outs, *dims, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"launch failed: CUDA error {err}")
+    return call
+
+
+def main():
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip(), flush=True)
+    others = [arg.split("=", 1) for arg in sys.argv[1:]]
+    for kernel, src, variants, make in (
+            ("sweep", sb2.SOURCE, SWEEP_VARIANTS, sweep_case),
+            ("rollout", rt1.SOURCE, ROLLOUT_VARIANTS, rollout_case)):
+        todo = [(name, src, defs) for name, defs in variants]
+        todo += [(name, os.path.join(os.path.abspath(root), os.path.relpath(src, REPO)), ())
+                 for name, root in others]
+        libs = load_all(kernel, todo)
+        case = make()
+        rows = {name: {"kernel": kernel, "variant": name} for name, _ in libs}
+        for order in (libs, libs[::-1]):
+            for name, lib in order:
+                for _, tag in TAGS:
+                    args, out, ref, dims = case[tag]
+                    call = caller(entry(lib, kernel, tag), kernel, args, out, dims)
+                    for o in out:
+                        o.fill_(float("nan"))
+                    call()
+                    torch.cuda.synchronize()
+                    err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+                    scale = max(float(r.abs().max()) for r in ref)
+                    rows[name][f"rel_err_{tag}"] = err / scale
+                    rows[name].setdefault(f"ms_{tag}", []).append(
+                        cs.cuda_ms(torch, call, reps=20))
+                    rows[name].setdefault(f"ms_back_to_back_{tag}", []).append(
+                        cs.cuda_ms(torch, call, reps=10, inner=INNER))
+        for row in rows.values():
+            print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()
