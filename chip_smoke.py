@@ -23,11 +23,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
   2. each kernel against its plain PyTorch twin at its path's shapes,
      float64 (the correctness gate, 1e-9 relative) and float32, with
      CUDA-event timings and the least time the card could take (bytes or
-     operations bound); the two kernels that run several threads a lane
-     (segment_backward_2nd, rollout_time1) also with their launch (blocks,
-     threads a block, shared memory, lanes an SM) and at ragged batches
-     (below one block's lanes; not a multiple of them) on a short horizon,
-     with keypoints at the first and the last step;
+     operations bound); the kernels that run several threads a lane
+     (segment_backward_2nd in both kinds, rollout_time1, riccati) also with
+     their launch (blocks, threads a block, shared memory, lanes an SM) and
+     at ragged batches (below one block's lanes; not a multiple of them) on
+     a short horizon, with keypoints (precisions) at the first and the last
+     step; riccati also at its joint (nq=7) and point (nq=3) widths;
   3. each path end to end: a first solve with every launch count set to 0
      just before it and read just after (each kernel of the path must have
      launched: once per backward sweep, and for the rollout once per
@@ -39,7 +40,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
      cost within 1e-8 relative, or within 10 times the CPU's own spread
      under a 1e-15 relative change of x0 where the solve is that sensitive;
      and the recursive path against the fleet path on the card on the same
-     64 lanes, cost within 1e-8 relative;
+     64 lanes, cost within 1e-8 relative; and 64 lanes of a joint-target
+     problem (nb_deriv 1, the riccati kernel at nq=7) through the recursive
+     solver on the card and on the CPU, float64, same iterations and alpha
+     per lane, cost within 1e-8 relative;
   5. one line, no gate: at B=4096, the dense input assembly and the riccati
      kernel beside the fleet's keypoint-sparse assembly and segment_backward;
   6. two lines, no gate: the riccati kernel against its twin at inputs
@@ -262,7 +266,7 @@ def sweep_bytes(n, hm1, n_kp, batch, itemsize, m=None):
 def sweep2_flops(kind, n, m, hm1, n_kp, batch):
     """Operations of one 'second' or 'time1' sweep, counted from the loops of
     csrc/segment_backward_2nd.cu (each add, multiply or divide one; the
-    sign flips of K and d counted too)."""
+    sign flips of K and d counted too; each Qux column formed once)."""
     second = kind == "second"
     dof = m if second else m - 1
     nx = n + 1
@@ -287,7 +291,7 @@ def sweep2_flops(kind, n, m, hm1, n_kp, batch):
     value = 0
     for i in range(n):
         qx = 3 if second and i >= dof else 1
-        value += sum(qux(r, i) for r in range(m)) + 5 * m + qx + 3
+        value += 5 * m + qx + 3
         for j in range(i, n):
             if second:
                 qxx = 1 + pa(j) if i < dof else 3 + 2 * pa(j)
@@ -326,33 +330,39 @@ def rollout_bytes(n, hm1, batch, itemsize):
     return batch * vals * itemsize
 
 
-def riccati_inputs(batch, limit_frac=0.005, seed=0):
-    """Seeded inputs of the dense Riccati sweep at H, N, NQ: Jacobians and
-    residuals at every step, the limit penalty live on a share `limit_frac`
-    of the entries (a solve's limits are rarely active, and every active
-    step amplifies the recursion's rounding: 0.5% is the checks' share)
-    -> (J, e, ld, lq, u)."""
+# The residual precisions of the riccati kernel's widths: position +
+# quaternion (the flagship's), joint, point.
+PREC_DIAG = {6: QD6, 7: [1.0] * 7, 3: [1.0] * 3}
+
+
+def riccati_inputs(batch, limit_frac=0.005, seed=0, nq=NQ, h=H):
+    """Seeded inputs of the dense Riccati sweep at horizon h, width (N, nq):
+    Jacobians and residuals at every step, the limit penalty live on a share
+    `limit_frac` of the entries (a solve's limits are rarely active, and
+    every active step amplifies the recursion's rounding: 0.5% is the
+    checks' share) -> (J, e, ld, lq, u)."""
     rng = np.random.default_rng(seed)
-    J = rng.normal(size=(batch, H, NQ, N)) * 0.3
-    e = rng.normal(size=(batch, H, NQ)) * 0.05
-    ld = (rng.uniform(size=(batch, H, N)) < limit_frac).astype(float)
-    lq = ld * rng.normal(size=(batch, H, N)) * 0.1
-    u = rng.normal(size=(batch, H - 1, N)) * 0.1
+    J = rng.normal(size=(batch, h, nq, N)) * 0.3
+    e = rng.normal(size=(batch, h, nq)) * 0.05
+    ld = (rng.uniform(size=(batch, h, N)) < limit_frac).astype(float)
+    lq = ld * rng.normal(size=(batch, h, N)) * 0.1
+    u = rng.normal(size=(batch, h - 1, N)) * 0.1
     return J, e, ld, lq, u
 
 
-def riccati_prec(dense, weight=None):
-    """Precisions [H, NQ, NQ]: the flagship's at steps H/2 and H-1, or the
-    flagship's times `weight` (1e-4 unless given) at every step. (Unit
-    precisions at all 100 steps keep dt^2 P far above Rt, where the
-    recursion doubles the antisymmetric rounding residue of P every step
+def riccati_prec(dense, weight=None, nq=NQ, h=H, steps=None):
+    """Precisions [h, nq, nq]: the width's at `steps` (the flagship's H/2
+    and H-1 unless given), or times `weight` (1e-4 unless given) at every
+    step. (Unit precisions at all 100 steps keep dt^2 P far above Rt, where
+    the recursion doubles the antisymmetric rounding residue of P every step
     and the port's twin leaves float64; a tracking weight small against
     Rt / dt^2 does not.)"""
-    prec = np.zeros((H, NQ, NQ))
+    prec = np.zeros((h, nq, nq))
     if dense:
-        prec[:] = (1e-4 if weight is None else weight) * np.diag(QD6)
+        prec[:] = (1e-4 if weight is None else weight) * np.diag(PREC_DIAG[nq])
     else:
-        prec[[H // 2, H - 1]] = (1.0 if weight is None else weight) * np.diag(QD6)
+        prec[list(steps or (h // 2, h - 1))] = (
+            (1.0 if weight is None else weight) * np.diag(PREC_DIAG[nq]))
     return prec
 
 
@@ -564,28 +574,33 @@ def phase_kernels_vs_twins(torch):
                           "B": cfg["B"], "kp_inner": kp},
             sweep_inputs(n, m, hm1, len(kp), cfg["B"], seed=1), call,
             lambda *a: sb2.segment_backward_2nd_reference(kind, *a, kp, dt, Rt),
-            2, inner=5 if kind == "second" else 1)
+            2, inner=5)
         out.update(bound(sweep_bytes(n, hm1, len(kp), cfg["B"], 4, m),
                          sweep2_flops(kind, n, m, hm1, len(kp), cfg["B"])))
-        if kind == "second":
-            out["launch"] = _launch_of(
-                torch, name, lambda dt_: sb2.launch_geometry(kind, cfg["B"], dt_),
-                lambda dt_: sb2.kernel_geometry(kind, cfg["B"], dt_))
+        out["launch"] = _launch_of(
+            torch, name, lambda dt_: sb2.launch_geometry(kind, cfg["B"], dt_),
+            lambda dt_: sb2.kernel_geometry(kind, cfg["B"], dt_))
         res[kind] = _gate_kernel(out)
 
-    # 'second' at ragged batches; keypoints at the first and the last step
-    n, m = sb2.KERNEL_WIDTHS["second"]
-    Rt = [1e-5] * m
-    for batch, kp in ((45, (0, RAGGED_HM1 - 1)),
-                      (PATHS["posorn2nd"]["B"] + 37, (5,))):
-        _gate_kernel(_kernel_vs_twin(
-            torch, "segment_backward_2nd",
-            {"kind": "second", "ragged": True, "n": n, "m": m,
-             "H": RAGGED_HM1 + 1, "B": batch, "kp_inner": kp},
-            sweep_inputs(n, m, RAGGED_HM1, len(kp), batch, seed=3),
-            lambda *a: sb2.segment_backward_2nd(*a, kp, 0.01, Rt),
-            lambda *a: sb2.segment_backward_2nd_reference("second", *a, kp,
-                                                          0.01, Rt), 0))
+    # both kinds at ragged batches; keypoints at the first and the last step
+    edge = (0, RAGGED_HM1 - 1)
+    for kind, path, dt, name, cases in (
+            ("second", "posorn2nd", 0.01, "segment_backward_2nd",
+             ((45, edge), (PATHS["posorn2nd"]["B"] + 37, (5,)))),
+            ("time1", "timeopt", None, "segment_backward_time1",
+             ((45, edge), (PATHS["timeopt"]["B"] + 37, edge)))):
+        n, m = sb2.KERNEL_WIDTHS[kind]
+        Rt = [1e-5] * m
+        for batch, kp in cases:
+            _gate_kernel(_kernel_vs_twin(
+                torch, name, {"kind": kind, "ragged": True, "n": n, "m": m,
+                              "H": RAGGED_HM1 + 1, "B": batch, "kp_inner": kp},
+                sweep_inputs(n, m, RAGGED_HM1, len(kp), batch, seed=3),
+                (lambda *a: sb2.segment_backward_2nd(*a, kp, dt, Rt))
+                if kind == "second" else
+                (lambda *a: sb2.segment_backward_time1(*a, kp, Rt)),
+                lambda *a: sb2.segment_backward_2nd_reference(kind, *a, kp, dt,
+                                                              Rt), 0))
 
     # the rollout is tens of microseconds, less than its wrapper takes on the
     # host: its device time is the profiled one in the kernel table
@@ -620,12 +635,41 @@ def phase_kernels_vs_twins(torch):
                                    "prec_steps": H if dense else 2},
                 lanes + (riccati_prec(dense),),
                 lambda *a: ric.riccati_backward(*a, Rt, 0.1),
-                lambda *a: ric.riccati_backward_reference(*a, Rt, 0.1), 3)
+                lambda *a: ric.riccati_backward_reference(*a, Rt, 0.1), 3,
+                inner=5)
             out.update(bound(riccati_bytes(N, NQ, H, batch, 4),
                              riccati_flops(N, NQ, H, batch)))
+            if not dense:
+                out["launch"] = _launch_of(
+                    torch, "riccati", lambda dt_: ric.launch_geometry(batch, dt_),
+                    lambda dt_: ric.kernel_geometry(batch, dt_))
             key = "riccati" + ("_dense" if dense else "") + (
                 "" if batch == REC_B else f"_b{batch}")
             res[key] = _gate_kernel(out)
+
+    # riccati at ragged batches on a short horizon, precisions at the first
+    # and the last step; then the joint and point widths at the path's
+    # horizon
+    h = RAGGED_HM1 + 1
+    for batch in (45, REC_B + 37):
+        _gate_kernel(_kernel_vs_twin(
+            torch, "riccati", {"ragged": True, "n": N, "nq": NQ, "H": h,
+                               "B": batch, "prec_steps": (0, h - 1)},
+            riccati_inputs(batch, seed=3, h=h)
+            + (riccati_prec(False, h=h, steps=(0, h - 1)),),
+            lambda *a: ric.riccati_backward(*a, Rt, 0.1),
+            lambda *a: ric.riccati_backward_reference(*a, Rt, 0.1), 0))
+    for nq in (7, 3):
+        out = _kernel_vs_twin(
+            torch, "riccati", {"n": N, "nq": nq, "H": H, "B": REC_B + 37,
+                               "prec_steps": 2},
+            riccati_inputs(REC_B + 37, seed=4, nq=nq) + (riccati_prec(False, nq=nq),),
+            lambda *a: ric.riccati_backward(*a, Rt, 0.1),
+            lambda *a: ric.riccati_backward_reference(*a, Rt, 0.1), 0)
+        out["launch"] = _launch_of(
+            torch, "riccati", lambda dt_: ric.launch_geometry(REC_B + 37, dt_, nq),
+            lambda dt_: ric.kernel_geometry(REC_B + 37, dt_, nq))
+        _gate_kernel(out)
     return res
 
 
@@ -942,6 +986,60 @@ def phase_cross_check(torch, path):
         fail("recursive and fleet paths disagree on the card")
 
 
+def joint_spec(torch, dtype, device):
+    """Joint-angle targets (the joint kind: a 7-wide residual) at steps 49
+    and 99 from the flagship's start, its horizon, dt and limits."""
+    from ilqr_planner_torch.systems.keypoints import AngularKeypoint
+    from ilqr_planner_torch.systems.spec import make_spec
+
+    kps = [AngularKeypoint(Q0 - 0.2, np.eye(7), H // 2 - 1),
+           AngularKeypoint(Q0 + 0.3, np.eye(7), H - 1)]
+    qmax = np.ones(7) * np.pi * 10
+    return make_spec("joint", _panda(dtype, device), kps, np.ones(7) * 1e-5,
+                     H, 1, dt=0.1, q0=Q0, q_max=qmax, q_min=-qmax, dtype=dtype,
+                     device=device)
+
+
+def phase_joint_cross_check(torch):
+    """64 lanes of the joint-target problem through the recursive solver,
+    float64, on the card (the riccati kernel at nq = 7) and on the CPU (its
+    twin): same iterations and alpha per lane, cost within 1e-8 relative."""
+    from ilqr_planner_torch.parallel import solve_batch
+
+    q0s, U0s = recursive_batch(XCHECK_B)
+    res, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        spec = joint_spec(torch, torch.float64, dev)
+        _reset_counts()
+        res[dev] = solve_batch(spec, {"x0": q0s}, U0s, NB_ITER, prefer_fleet=False)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        counts[dev] = _read_counts()
+    gpu, cpu = res["cuda"], res["cpu"]
+    c_gpu, c_cpu = gpu.cost.cpu().numpy(), cpu.cost.numpy()
+    rel = float(np.max(np.abs(c_gpu - c_cpu) / np.abs(c_cpu)))
+    out = {"phase": "card_vs_cpu", "path": "joint_recursive", "nq": 7,
+           "batch": XCHECK_B, "dtype": "float64",
+           "same_iterations": bool(np.array_equal(gpu.iterations.cpu().numpy(),
+                                                  cpu.iterations.numpy())),
+           "same_alpha": bool(np.array_equal(gpu.alpha.cpu().numpy(),
+                                             cpu.alpha.numpy())),
+           "cost_max_rel_diff": rel, "tolerance": XCHECK_REL,
+           "median_cost": float(np.median(c_cpu)),
+           "median_iterations": float(np.median(cpu.iterations.numpy())),
+           "card_riccati_launches": counts["cuda"]["riccati"],
+           "cpu_riccati_launches": counts["cpu"]["riccati"],
+           "U_max_abs_diff": float((gpu.U.cpu() - cpu.U).abs().max())}
+    emit(out)
+    if not (np.isfinite(c_gpu).all() and np.isfinite(c_cpu).all()):
+        fail("joint_recursive: non-finite costs")
+    if not (out["same_iterations"] and out["same_alpha"] and rel <= XCHECK_REL):
+        fail("joint_recursive: card and CPU disagree")
+    if out["card_riccati_launches"] == 0 or out["cpu_riccati_launches"]:
+        fail("joint_recursive: the card run must launch the riccati kernel "
+             "and the CPU run must not")
+
+
 def phase_dense_vs_sparse(torch):
     """One line, no gate: the two backward passes of the flagship problem at
     B = REC_B on random states, float32 -- the dense input assembly (forward
@@ -1069,6 +1167,7 @@ def main():
         e2e[path] = timed(path, phase_new_path, torch, path)
     for path in e2e:
         timed("cross_checks", phase_cross_check, torch, path)
+    timed("cross_checks", phase_joint_cross_check, torch)
     timed("dense_vs_sparse", phase_dense_vs_sparse, torch)
     timed("riccati_rounding", phase_riccati_rounding, torch)
     profiled = {}           # kernel -> device ms a launch in its path's window

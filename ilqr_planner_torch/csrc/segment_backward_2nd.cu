@@ -27,37 +27,43 @@
 // recursion is a serial chain of several thousand operations a step, and
 // the solves' batches (B = 2048 .. 4096) are a few dozen lanes an SM, so a
 // thread a lane is one warp an SM with every operand a dependent load from
-// shared memory (the first design of 'second': 49 us a step at n = 14,
-// B = 4096 on an NVIDIA H100 80GB HBM3 at 700 W, 71 times its bytes bound).
+// shared memory (the first designs, one thread a lane: 'second' 49 us a
+// step at n = 14, B = 4096, 71 times its bytes bound; 'time1' 35 us a step
+// at n = 8, B = 2048, 147 times, on an NVIDIA H100 80GB HBM3 at 700 W).
 //
-// The two kinds run two designs.
-//
-// 'second' (second_kernel): sixteen threads a lane, split over output
-// columns and rows, never over a summation index.
-//  * A block owns 32 neighbouring lanes and is 16 warps; thread (w, lane)
-//    of warp w works on that lane. The threads of one WARP are therefore 32
-//    neighbouring lanes on one matrix entry: every global load and store of
-//    a warp is one contiguous row piece (a 128-byte line in float32), with
-//    the lane axis minor as the solver lays its arrays out, and shared
-//    memory laid out [entry][lane] is free of bank conflicts. (Putting the
-//    16 threads of a lane side by side in a warp would cut each store into
-//    sixteen 8-byte pieces; K and d are 75% of the bytes.) The price is
-//    that the threads of a lane meet at block barriers, nine a step.
-//  * Warp c < n owns column c of the right-hand side [Qux | Qu], warp n the
-//    column Qu, warp j < m also column j of Quu + reg I, all in registers
-//    through the elimination. At pivot k the owner of column k publishes it
+// Both kinds run one design, one body (`sweep`) with the kind's assembly
+// and value-update terms as a policy (`Second`, `Time1`): several threads
+// a lane, split over output columns and rows, never over a summation
+// index, so that every sum runs in one thread in the one-thread order.
+//  * A block owns kLanes neighbouring lanes; thread (w, lane) with
+//    w = threadIdx.x / kLanes works on that lane. At 32 lanes the threads of
+//    one WARP are 32 neighbouring lanes on one matrix entry: every global
+//    load and store of a warp is one contiguous row piece (a 128-byte line
+//    in float32), with the lane axis minor as the solver lays its arrays
+//    out, and shared memory laid out [entry][lane] is free of bank
+//    conflicts (at 16 lanes a warp is 16 lanes on two entries: 64-byte
+//    pieces). (Putting the threads of a lane side by side in a warp would
+//    cut each store into 8-byte pieces; K and d are 75% of the bytes.) The
+//    price is that the threads of a lane meet at block barriers: m + 2 a
+//    step.
+//  * Thread w < n owns column w of the right-hand side [Qux | Qu], thread n
+//    the column Qu, thread w < m also column w of Quu + reg I, all in
+//    registers through the elimination ('second': 16 threads a lane, 15 own
+//    a column; 'time1': 9). At pivot k the owner of column k publishes it
 //    and 1 / pivot (m + 1 values) in shared memory and one barrier later
-//    every warp updates its columns; each entry sees the operations of the
-//    one-thread elimination in its order.
+//    every owner updates its columns; each entry sees the operations of the
+//    one-thread elimination in its order. 'time1' reads B from the lane's
+//    own control: every owner reads the step's m controls from the ring.
 //  * The carry (P in full, both halves written with one value, and p)
 //    lives in shared memory, two copies in turn, because every column owner
 //    reads across it; stored in full, a column or a row is a fixed offset
 //    from one pointer formed once a step (a packed triangle cost an index
-//    computation a load: 1.70 ms against 1.35 at the path's shape). K and d
-//    go to device memory straight from their owners' registers and to a
-//    shared tile for the value update, where warp i < n forms row i of the
-//    new carry from its own Qux column (kept from before the elimination)
-//    and K column in registers, each sum over r = 0..m-1 in one thread.
+//    computation a load: 1.70 ms against 1.35 for 'second' at its path's
+//    shape). K and d go to device memory straight from their owners'
+//    registers and to a shared tile for the value update, where thread
+//    i < n forms row i of the new carry from its own Qux column (formed
+//    once, before the elimination, and kept) and K column in registers,
+//    each sum over r = 0..m-1 in one thread.
 //  * The streamed rows of the next steps are in flight: U, lx and L2 of
 //    step t - kAhead are copied by cp.async into a ring of kAhead + 1 row
 //    sets at the top of step t (each thread keeps the source pointers of
@@ -66,29 +72,35 @@
 //    slot of step t - 1 is read during step t; nothing on the dependent
 //    chain waits on device memory. K and d are stored just after a barrier,
 //    not just before one, so that no barrier waits on the stores.
-//  * Shared memory: 791 values a lane (two carries 420, K | d 105, pivot
-//    columns 56, row ring 105, keypoint Hessian 105): 99 KB a block in
-//    float32, 198 KB in float64, so by shared memory an SM holds 64 lanes
-//    in float32 and 32 in float64; the 512 threads of a block at 94 to 98
-//    registers leave one block (32 lanes) an SM in both types, which is
-//    what the solves' B = 4096 puts there (128 blocks on 132 SMs).
-//  * What is left (1.23 ms in float32, 4.5 times the bytes bound, about
-//    3 us a step): 16 warps taking turns through short phases between
-//    barriers. Timing the kernel with the pivot loads or the value update's
-//    K loads removed moved float32 by nothing, so shared-memory bandwidth
-//    is not the limit; the seven pivots are a chain of publish, barrier,
-//    load (a third of the step), and the value update and the columns'
-//    assembly are bound by the instructions the four schedulers run,
-//    addressing included.
+//  * Shared memory a lane: two carries 2(n^2 + n), K | d m(n + 1), pivot
+//    columns m(m + 1), row ring (kAhead + 1)(2n + m), keypoint Hessian
+//    n(n + 1)/2. 'second' (n = 14, 32 lanes, 16 threads a lane): 791 values,
+//    99 KB a block in float32, 198 KB in float64; the 512 threads of a block
+//    at 94 to 98 registers leave one block (32 lanes) an SM in both types,
+//    which is what the solves' B = 4096 puts there (128 blocks on 132 SMs).
+//    'time1' (n = m = 8, 9 threads a lane, 16 lanes a block, 160 threads
+//    launched): 396 values, 25,344 bytes a block in float32 and 50,688 in
+//    float64; at 64 / 96 registers the occupancy calculator puts 6 blocks
+//    (96 lanes) an SM in float32 and 4 (64) in float64, and timeopt's
+//    B = 2048 puts 128 blocks, one an SM.
+//  * Measured on an NVIDIA H100 80GB HBM3 at 700 W
+//    (tools/kernel_variants.py, float32 / float64): 'time1' at timeopt's
+//    shape 0.216 / 0.260 ms at 16 lanes a block, 0.237 / 0.330 at 32 (the
+//    first design, one thread a lane: 3.22 / 3.61); rows 1 or 2 steps
+//    ahead alike. 2.2 us a step, 9 times the bytes bound.
+//  * What is left in 'second' (1.23 ms in float32, 4.5 times the bytes
+//    bound, about 3 us a step): the threads taking turns through short
+//    phases between barriers. Timing the kernel with the pivot loads or the
+//    value update's K loads removed moved float32 by nothing, so
+//    shared-memory bandwidth is not the limit; the seven pivots are a chain
+//    of publish, barrier, load (a third of the step), and the value update
+//    and the columns' assembly are bound by the instructions the four
+//    schedulers run, addressing included.
 //  * A ragged last block: lanes past B read lane B - 1 and store nothing;
 //    no thread leaves before the last barrier.
-// Tensor cores (wgmma) are not the tool: the products are 7 x 14 a lane
-// inside a serial recursion, and float32 / float64 accuracy is part of the
-// result.
-//
-// 'time1' (time1_kernel): the first design, one thread a lane, 32 threads a
-// block, the per-lane working set (224 values) in shared memory
-// [entry][thread]; its redesign is later work.
+// Tensor cores (wgmma) are not the tool: the products are 7 x 14 and 8 x 9
+// a lane inside a serial recursion, and float32 / float64 accuracy is part
+// of the result.
 
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
@@ -98,9 +110,23 @@ namespace {
 #ifndef SECOND_AHEAD
 #define SECOND_AHEAD 2
 #endif
-constexpr int kLanes = 32;            // lanes a block, both designs
-constexpr int kGroup = 16;            // 'second': warps a block = threads a lane
-constexpr int kAhead = SECOND_AHEAD;  // 'second': steps whose rows are in flight
+#ifndef TIME1_LANES
+#define TIME1_LANES 16
+#endif
+#ifndef TIME1_AHEAD
+#define TIME1_AHEAD 2
+#endif
+
+// 'second': 32 lanes a block, sixteen threads a lane (warps a block)
+constexpr int kLanes = 32;
+constexpr int kGroup = 16;
+constexpr int kAhead = SECOND_AHEAD;  // steps whose rows are in flight
+// 'time1': n + 1 = 9 threads a lane. At 2048 lanes (the timeopt path), 16
+// lanes a block are 128 blocks, one on each of 128 of the 132 SMs; 32 lanes
+// a block, 64 blocks on 64 SMs, measured 1.1x (float32) and 1.3x (float64)
+// slower.
+constexpr int kTime1Lanes = TIME1_LANES;
+constexpr int kTime1Ahead = TIME1_AHEAD;
 
 // index of (i, j), i <= j, in a row-major upper triangle of an N x N matrix
 template <int N>
@@ -108,21 +134,26 @@ __device__ __forceinline__ int tri(int i, int j) {
   return i * N - (i * (i - 1)) / 2 + (j - i);
 }
 
-template <int N>
-__device__ __forceinline__ int sym(int i, int j) {
-  return i <= j ? tri<N>(i, j) : tri<N>(j, i);
-}
+// The two kinds as policies of one body: widths, lanes a block, threads a
+// lane (kGroup, of which n + 1 own a column of [Qux | Qu]) and steps ahead.
+template <int M_>
+struct Second {
+  static constexpr bool kSecond = true;
+  static constexpr int M = M_, N = 2 * M_, DOF = M_;
+  static constexpr int kLanes = ::kLanes, kGroup = ::kGroup, kAhead = ::kAhead;
+};
 
-// entry e of a shared buffer whose base already points at this thread's lane
-#define SH(base, e) (base)[(e) * kLanes]
+template <int N_>
+struct Time1 {
+  static constexpr bool kSecond = false;
+  static constexpr int M = N_, N = N_, DOF = N_ - 1;
+  static constexpr int kLanes = kTime1Lanes, kGroup = N_ + 1,
+                       kAhead = kTime1Ahead;
+};
 
-// ---------------------------------------------------------------------------
-// 'second': sixteen threads a lane
-// ---------------------------------------------------------------------------
-
-template <int M>
-struct SecondLayout {
-  static constexpr int N = 2 * M;
+template <class K>
+struct Layout {
+  static constexpr int N = K::N, M = K::M;
   static constexpr int NX = N + 1;                 // columns of [Qux | Qu]
   static constexpr int kTri = N * (N + 1) / 2;
   static constexpr int kCarry = N * N + N;         // P (both halves), p
@@ -130,26 +161,30 @@ struct SecondLayout {
   static constexpr int kPiv = M * (M + 1);         // pivot columns, 1 / pivot
   static constexpr int kRows = 2 * N + M;          // U, lx, L2 of one step
   static constexpr int kVals =
-      2 * kCarry + kGain + kPiv + (kAhead + 1) * kRows + kTri;
+      2 * kCarry + kGain + kPiv + (K::kAhead + 1) * kRows + kTri;
+  // threads a block: whole warps
+  static constexpr int kThreads = (K::kGroup * K::kLanes + 31) / 32 * 32;
 };
 
-template <int M, typename T>
-__global__ void __launch_bounds__(kGroup * kLanes)
-second_kernel(const T* __restrict__ P0, const T* __restrict__ p0,
-              const T* __restrict__ L2, const T* __restrict__ lx,
-              const T* __restrict__ U, const T* __restrict__ gxx,
-              const int* __restrict__ slots, const T* __restrict__ params,
-              T* __restrict__ Ks, T* __restrict__ ds, int Hm1, int B) {
-  using L = SecondLayout<M>;
-  constexpr int N = L::N;
-  constexpr int NX = L::NX;
-  constexpr int DOF = M;
-  static_assert(kGroup >= NX, "one warp a column of [Qux | Qu]");
+// entry e of a shared buffer whose base already points at this thread's lane
+#define SH(base, e) (base)[(e) * kL]
+
+template <class Kind, typename T>
+__device__ __forceinline__ void sweep(
+    const T* __restrict__ P0, const T* __restrict__ p0,
+    const T* __restrict__ L2, const T* __restrict__ lx,
+    const T* __restrict__ U, const T* __restrict__ gxx,
+    const int* __restrict__ slots, const T* __restrict__ params,
+    T* __restrict__ Ks, T* __restrict__ ds, int Hm1, int B) {
+  using L = Layout<Kind>;
+  constexpr int M = Kind::M, N = Kind::N, DOF = Kind::DOF, NX = L::NX;
+  constexpr int kL = Kind::kLanes, kG = Kind::kGroup, kAh = Kind::kAhead;
+  static_assert(kG >= NX, "one thread a lane for each column of [Qux | Qu]");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int w = threadIdx.x / kLanes;  // the column / row this thread owns
-  const int l = threadIdx.x % kLanes;
-  const int b = blockIdx.x * kLanes + l;
+  const int w = threadIdx.x / kL;      // the column / row this thread owns
+  const int l = threadIdx.x % kL;
+  const int b = blockIdx.x * kL + l;
   const bool live = b < B;
   const int bl = live ? b : B - 1;     // the lane whose inputs are read
   const size_t sB = static_cast<size_t>(B);
@@ -158,11 +193,11 @@ second_kernel(const T* __restrict__ P0, const T* __restrict__ p0,
   // written with one value, so a column owner reads column c at a fixed
   // offset from a pointer it forms once a step; p follows at N * N.
   T* cur = reinterpret_cast<T*>(smem_raw) + l;  // carry of step t + 1
-  T* nxt = cur + L::kCarry * kLanes;            // carry being written
-  T* const Ksh = cur + 2 * L::kCarry * kLanes;  // [M][NX]: K | d
-  T* const Psh = Ksh + L::kGain * kLanes;       // [M][M + 1]
-  T* const Rsh = Psh + L::kPiv * kLanes;        // [kAhead + 1][kRows]
-  T* const Gsh = Rsh + (kAhead + 1) * L::kRows * kLanes;  // [kTri]
+  T* nxt = cur + L::kCarry * kL;                // carry being written
+  T* const Ksh = cur + 2 * L::kCarry * kL;      // [M][NX]: K | d
+  T* const Psh = Ksh + L::kGain * kL;           // [M][M + 1]
+  T* const Rsh = Psh + L::kPiv * kL;            // [kAh + 1][kRows]
+  T* const Gsh = Rsh + (kAh + 1) * L::kRows * kL;  // [kTri]
   // row w of the keypoint Hessian's upper triangle: entry (w, j) at gw + j
   const int gw = tri<N>(w < N ? w : 0, 0);
 
@@ -171,14 +206,14 @@ second_kernel(const T* __restrict__ P0, const T* __restrict__ p0,
   const T reg = params[2];
 
   // The streamed rows of a step (U, lx, L2: kRows rows) are copied into a
-  // ring slot by rows w, w + kGroup, ...: this thread's source pointers,
-  // at the last step, each moved back one step after a copy.
-  constexpr int kMine = (L::kRows + kGroup - 1) / kGroup;
+  // ring slot by rows w, w + kG, ...: this thread's source pointers, at the
+  // last step, each moved back one step after a copy.
+  constexpr int kMine = (L::kRows + kG - 1) / kG;
   const T* src[kMine];
   size_t back[kMine];
 #pragma unroll
   for (int q = 0; q < kMine; ++q) {
-    const int r = w + q * kGroup;
+    const int r = w + q * kG;
     const size_t last = static_cast<size_t>(Hm1 - 1);
     if (r < M) {
       src[q] = U + (last * M + r) * sB + bl;
@@ -193,17 +228,17 @@ second_kernel(const T* __restrict__ P0, const T* __restrict__ p0,
   }
   int ring_in = 0;  // the ring slot the next copy fills
   auto copy_rows = [&]() {
-    T* const dst = Rsh + ring_in * L::kRows * kLanes;
+    T* const dst = Rsh + ring_in * L::kRows * kL;
 #pragma unroll
     for (int q = 0; q < kMine; ++q) {
-      if (w + q * kGroup < L::kRows)
-        __pipeline_memcpy_async(&SH(dst, w + q * kGroup), src[q], sizeof(T));
+      if (w < kG && w + q * kG < L::kRows)
+        __pipeline_memcpy_async(&SH(dst, w + q * kG), src[q], sizeof(T));
       src[q] -= back[q];
     }
-    ring_in = ring_in == kAhead ? 0 : ring_in + 1;
+    ring_in = ring_in == kAh ? 0 : ring_in + 1;
   };
 
-  for (int s = 0; s < kAhead; ++s) {
+  for (int s = 0; s < kAh; ++s) {
     if (Hm1 - 1 - s >= 0) copy_rows();
     __pipeline_commit();
   }
@@ -220,7 +255,7 @@ second_kernel(const T* __restrict__ P0, const T* __restrict__ p0,
       SH(cur, j * N + w) = v;
     }
   }
-  __pipeline_wait_prior(kAhead - 1);  // the rows of step Hm1 - 1 have landed
+  __pipeline_wait_prior(kAh - 1);  // the rows of step Hm1 - 1 have landed
   __syncthreads();
 
 #pragma unroll 1
@@ -234,47 +269,112 @@ second_kernel(const T* __restrict__ P0, const T* __restrict__ p0,
         __pipeline_memcpy_async(&SH(Gsh, gw + j), g + (w * N + j) * sB,
                                 sizeof(T));
     }
-    if (t - kAhead >= 0) copy_rows();
+    if (t - kAh >= 0) copy_rows();
     __pipeline_commit();
-    const T* const rows = Rsh + ring_out * L::kRows * kLanes;
-    ring_out = ring_out == kAhead ? 0 : ring_out + 1;
-    const T* const pvec = cur + N * N * kLanes;  // p
+    const T* const rows = Rsh + ring_out * L::kRows * kL;
+    ring_out = ring_out == kAh ? 0 : ring_out + 1;
+    const T* const pvec = cur + N * N * kL;  // p
 
-    // 1. this warp's columns of the system [Quu + reg I | Qux | Qu]. With
-    // PA = P A (dt * q-columns added to the dq-columns), column c of
-    // Qux = B^T PA is b1 PA[r][c] + dt PA[r + dof][c].
+    // 1. this thread's columns of the system [Quu + reg I | Qux | Qu], and
+    // qc, its column of Qux, kept for the value update
     T x[M], qc[M], a[M];
 #pragma unroll
     for (int r = 0; r < M; ++r) x[r] = qc[r] = a[r] = T(0);
-    if (w < DOF) {
-      const T* const pc = cur + w * kLanes;  // P[:, w], entry a at a * N
+    if constexpr (Kind::kSecond) {
+      // With PA = P A (dt * q-columns added to the dq-columns), column c of
+      // Qux = B^T PA is b1 PA[r][c] + dt PA[r + dof][c].
+      if (w < DOF) {
+        const T* const pc = cur + w * kL;  // P[:, w], entry a at a * N
 #pragma unroll
-      for (int r = 0; r < M; ++r)
-        x[r] = qc[r] = b1 * SH(pc, r * N) + dt * SH(pc, (r + DOF) * N);
-      const T* const pd = pc + DOF * kLanes;  // P[:, w + dof]
-      const T Rtw = params[3 + w];
+        for (int r = 0; r < M; ++r)
+          x[r] = qc[r] = b1 * SH(pc, r * N) + dt * SH(pc, (r + DOF) * N);
+        const T* const pd = pc + DOF * kL;  // P[:, w + dof]
+        const T Rtw = params[3 + w];
 #pragma unroll
-      for (int i = 0; i < M; ++i) {
-        const T pb_i = b1 * SH(pc, i * N) + dt * SH(pd, i * N);
-        const T pb_di = b1 * SH(pc, (i + DOF) * N) + dt * SH(pd, (i + DOF) * N);
-        T q = b1 * pb_i + dt * pb_di;
-        if (i == w) q = q + Rtw + reg;
-        a[i] = q;
+        for (int i = 0; i < M; ++i) {
+          const T pb_i = b1 * SH(pc, i * N) + dt * SH(pd, i * N);
+          const T pb_di = b1 * SH(pc, (i + DOF) * N) + dt * SH(pd, (i + DOF) * N);
+          T q = b1 * pb_i + dt * pb_di;
+          if (i == w) q = q + Rtw + reg;
+          a[i] = q;
+        }
+      } else if (w < N) {
+        const T* const pc = cur + w * kL;   // P[:, w]
+        const T* const pq = pc - DOF * kL;  // P[:, w - dof]
+#pragma unroll
+        for (int r = 0; r < M; ++r) {
+          const T pa_r = SH(pc, r * N) + dt * SH(pq, r * N);
+          const T pa_d = SH(pc, (r + DOF) * N) + dt * SH(pq, (r + DOF) * N);
+          x[r] = qc[r] = b1 * pa_r + dt * pa_d;
+        }
+      } else if (w == N) {
+#pragma unroll
+        for (int r = 0; r < M; ++r)
+          x[r] = params[3 + r] * SH(rows, r) +
+                 (b1 * SH(pvec, r) + dt * SH(pvec, r + DOF));
       }
-    } else if (w < N) {
-      const T* const pc = cur + w * kLanes;   // P[:, w]
-      const T* const pq = pc - DOF * kLanes;  // P[:, w - dof]
+    } else {
+      // B from this step's control: s = u[m-1], h = 2 s, g = h u[:dof];
+      // Qux = B^T P: row r < dof is s^2 P[r][c], the last row the
+      // chain-rule sum g . P[:dof, c] + h P[n-1][c]
+      if (w <= N) {
+        T g[DOF];
+        const T s = SH(rows, M - 1);
+        const T dtk = s * s;
+        const T h = T(2) * s;
 #pragma unroll
-      for (int r = 0; r < M; ++r) {
-        const T pa_r = SH(pc, r * N) + dt * SH(pq, r * N);
-        const T pa_d = SH(pc, (r + DOF) * N) + dt * SH(pq, (r + DOF) * N);
-        x[r] = qc[r] = b1 * pa_r + dt * pa_d;
+        for (int q = 0; q < DOF; ++q) g[q] = h * SH(rows, q);
+        if (w < N) {
+          const T* const pc = cur + w * kL;  // P[:, w], entry a at a * N
+          T acc = T(0);
+#pragma unroll
+          for (int r = 0; r < DOF; ++r) {
+            const T v = SH(pc, r * N);
+            qc[r] = dtk * v;
+            acc += g[r] * v;
+          }
+          qc[DOF] = acc + h * SH(pc, DOF * N);
+#pragma unroll
+          for (int r = 0; r < M; ++r) x[r] = qc[r];
+          // column w of P B: s^2 P[:, w], or for the last column
+          // P g + h P[:, n-1], a row of P a sum
+          T pb[N];
+          if (w < DOF) {
+#pragma unroll
+            for (int r = 0; r < N; ++r) pb[r] = dtk * SH(pc, r * N);
+          } else {
+#pragma unroll
+            for (int r = 0; r < N; ++r) {
+              const T* const pr = cur + r * N * kL;  // P[r, :]
+              T acc2 = T(0);
+#pragma unroll
+              for (int q = 0; q < DOF; ++q) acc2 += SH(pr, q) * g[q];
+              pb[r] = acc2 + SH(pr, N - 1) * h;
+            }
+          }
+          // column w of Quu = B^T (P B), the regularized diagonal
+          T last = T(0);
+#pragma unroll
+          for (int q = 0; q < DOF; ++q) last += g[q] * pb[q];
+          last = last + h * pb[N - 1];
+#pragma unroll
+          for (int i = 0; i < DOF; ++i) {
+            T q = dtk * pb[i];
+            if (i == w) q = q + params[3 + i] + reg;
+            a[i] = q;
+          }
+          if (w == DOF) last = last + params[3 + DOF] + reg;
+          a[DOF] = last;
+        } else {
+          T acc = T(0);
+#pragma unroll
+          for (int q = 0; q < DOF; ++q) acc += g[q] * SH(pvec, q);
+#pragma unroll
+          for (int i = 0; i < DOF; ++i)
+            x[i] = params[3 + i] * SH(rows, i) + dtk * SH(pvec, i);
+          x[DOF] = params[3 + DOF] * SH(rows, DOF) + (acc + h * SH(pvec, N - 1));
+        }
       }
-    } else if (w == N) {
-#pragma unroll
-      for (int r = 0; r < M; ++r)
-        x[r] = params[3 + r] * SH(rows, r) +
-               (b1 * SH(pvec, r) + dt * SH(pvec, r + DOF));
     }
 
     // 2. Gauss-Jordan without pivoting: [I | S | s], a barrier a pivot
@@ -327,13 +427,14 @@ second_kernel(const T* __restrict__ P0, const T* __restrict__ p0,
     kout -= M * N * sB;
     dout -= M * sB;
 
-    // 4. value update: warp i writes row i (and, mirrored, column i) of the
-    // other carry buffer, from its Qux column qc and its K column x
+    // 4. value update: thread i writes row i (and, mirrored, column i) of
+    // the other carry buffer, from its Qux column qc and its K column x
     if (w < N) {
       const int i = w;
-      const bool low = i >= DOF;                // a dq-row: A^T adds dt * q-row
-      const T* const pr = cur + i * N * kLanes;  // P[i, :]
-      const T* const pq = low ? pr - DOF * N * kLanes : pr;  // P[i - dof, :]
+      // 'second': a dq-row, where A^T adds dt * the q-row
+      const bool low = Kind::kSecond && i >= DOF;
+      const T* const pr = cur + i * N * kL;  // P[i, :]
+      const T* const pq = low ? pr - DOF * N * kL : pr;  // P[i - dof, :]
       T s1 = T(0), s2 = T(0);
 #pragma unroll
       for (int r = 0; r < M; ++r) {
@@ -346,8 +447,8 @@ second_kernel(const T* __restrict__ P0, const T* __restrict__ p0,
       SH(nxt, N * N + i) = (qx + s1) - reg * s2;
 
       const T l2i = SH(rows, M + N + i);
-      T* const nr = nxt + i * N * kLanes;  // new P[i, :]
-      T* const nc = nxt + i * kLanes;      // new P[:, i]
+      T* const nr = nxt + i * N * kL;  // new P[i, :]
+      T* const nc = nxt + i * kL;      // new P[:, i]
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         if (j < i) continue;
@@ -360,8 +461,9 @@ second_kernel(const T* __restrict__ P0, const T* __restrict__ p0,
         }
         T stage = i == j ? l2i : T(0);
         if (slot >= 0) stage = stage + SH(Gsh, gw + j);
-        // PA[i][j], and for a dq-row dt * PA[i - dof][j] more
-        T pa = j < DOF ? SH(pr, j) : SH(pr, j) + dt * SH(pr, j - DOF);
+        // 'second': PA[i][j], and for a dq-row dt * PA[i - dof][j] more
+        T pa = !Kind::kSecond || j < DOF ? SH(pr, j)
+                                         : SH(pr, j) + dt * SH(pr, j - DOF);
         if (low)
           pa = pa + dt * (j < DOF ? SH(pq, j)
                                   : SH(pq, j) + dt * SH(pq, j - DOF));
@@ -370,7 +472,7 @@ second_kernel(const T* __restrict__ P0, const T* __restrict__ p0,
         SH(nc, j * N) = v;
       }
     }
-    __pipeline_wait_prior(kAhead - 1);  // the rows of step t - 1 have landed
+    __pipeline_wait_prior(kAh - 1);  // the rows of step t - 1 have landed
     __syncthreads();
     T* const tmp = cur;
     cur = nxt;
@@ -378,252 +480,75 @@ second_kernel(const T* __restrict__ P0, const T* __restrict__ p0,
   }
 }
 
-template <int M, typename T>
-constexpr int second_smem() {
-  return static_cast<int>(SecondLayout<M>::kVals * kLanes * sizeof(T));
-}
+#undef SH
+
+#define SWEEP_ARGS                                                         \
+  const T *__restrict__ P0, const T *__restrict__ p0,                      \
+      const T *__restrict__ L2, const T *__restrict__ lx,                  \
+      const T *__restrict__ U, const T *__restrict__ gxx,                  \
+      const int *__restrict__ slots, const T *__restrict__ params,         \
+      T *__restrict__ Ks, T *__restrict__ ds, int Hm1, int B
 
 template <int M, typename T>
-int launch_second(const T* P0, const T* p0, const T* L2, const T* lx,
-                  const T* U, const T* gxx, const int* slots, const T* params,
-                  T* Ks, T* ds, int Hm1, int B, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      second_kernel<M, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      second_smem<M, T>());
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + kLanes - 1) / kLanes;
-  second_kernel<M, T><<<blocks, kGroup * kLanes, second_smem<M, T>(),
-                        static_cast<cudaStream_t>(stream)>>>(
-      P0, p0, L2, lx, U, gxx, slots, params, Ks, ds, Hm1, B);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(Layout<Second<M>>::kThreads)
+second_kernel(SWEEP_ARGS) {
+  sweep<Second<M>, T>(P0, p0, L2, lx, U, gxx, slots, params, Ks, ds, Hm1, B);
 }
 
-// ---------------------------------------------------------------------------
-// 'time1': one thread a lane
-// ---------------------------------------------------------------------------
+template <int N, typename T>
+__global__ void __launch_bounds__(Layout<Time1<N>>::kThreads)
+time1_kernel(SWEEP_ARGS) {
+  sweep<Time1<N>, T>(P0, p0, L2, lx, U, gxx, slots, params, Ks, ds, Hm1, B);
+}
 
-template <int N>
-struct Time1Layout {
-  static constexpr int kTri = N * (N + 1) / 2;
-  static constexpr int kCarry = kTri + N;           // P upper triangle, p
-  static constexpr int kVals = 2 * kCarry + N * N + N * (N + 1);
+#undef SWEEP_ARGS
+
+// The kernel of a kind (second_kernel<7, T> or time1_kernel<8, T>) with its
+// launch: blocks at batch B, threads a block, dynamic shared memory.
+template <class Kind, typename T>
+struct Launch {
+  static constexpr int threads = Layout<Kind>::kThreads;
+  static constexpr int smem =
+      static_cast<int>(Layout<Kind>::kVals * Kind::kLanes * sizeof(T));
+  static int blocks(int B) { return (B + Kind::kLanes - 1) / Kind::kLanes; }
+  static auto kernel() {
+    if constexpr (Kind::kSecond)
+      return second_kernel<Kind::M, T>;
+    else
+      return time1_kernel<Kind::N, T>;
+  }
 };
 
-template <int N, typename T>
-__global__ void __launch_bounds__(kLanes)
-time1_kernel(const T* __restrict__ P0, const T* __restrict__ p0,
-             const T* __restrict__ L2, const T* __restrict__ lx,
-             const T* __restrict__ U, const T* __restrict__ gxx,
-             const int* __restrict__ slots, const T* __restrict__ params,
-             T* __restrict__ Ks, T* __restrict__ ds, int Hm1, int B) {
-  constexpr int M = N;
-  constexpr int DOF = M - 1;
-  constexpr int TRI = Time1Layout<N>::kTri;
-  constexpr int CARRY = Time1Layout<N>::kCarry;
-  constexpr int NX = N + 1;  // columns of the right-hand side [Qux | Qu]
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int b = blockIdx.x * kLanes + threadIdx.x;
-  if (b >= B) return;  // no barrier in this kernel
-  const size_t sB = static_cast<size_t>(B);
-
-  T* const lane = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
-  T* cur = lane;                        // carry of step t + 1
-  T* nxt = lane + CARRY * kLanes;       // carry being written
-  T* const Ash = lane + 2 * CARRY * kLanes;
-  T* const Xsh = Ash + M * M * kLanes;
-#define A_(i, j) SH(Ash, (i) * M + (j))
-#define X_(i, j) SH(Xsh, (i) * NX + (j))
-
-  const T reg = params[2];
-  T Rt[M];
-#pragma unroll
-  for (int i = 0; i < M; ++i) Rt[i] = params[3 + i];
-
-  for (int i = 0; i < N; ++i) {
-    SH(cur, TRI + i) = p0[i * sB + b];
-    for (int j = i; j < N; ++j)
-      SH(cur, tri<N>(i, j)) = P0[(i * N + j) * sB + b];
-  }
-
-#pragma unroll 1
-  for (int t = Hm1 - 1; t >= 0; --t) {
-    const size_t rowN = static_cast<size_t>(t) * N * sB + b;  // [t, 0, b]
-    const size_t rowM = static_cast<size_t>(t) * M * sB + b;
-    const int slot = slots[t];
-    const T* const g_slot =
-        slot >= 0 ? gxx + static_cast<size_t>(slot) * N * N * sB + b : nullptr;
-
-    auto P = [&](int i, int j) -> T { return SH(cur, sym<N>(i, j)); };
-    auto pv = [&](int i) -> T { return SH(cur, TRI + i); };
-    T u[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) u[i] = U[rowM + i * sB];
-
-    // B is read from the control: s = u[m-1]
-    const T s = u[M - 1];
-    const T dtk = s * s;
-    const T h = T(2) * s;
-    T g[DOF];
-#pragma unroll
-    for (int i = 0; i < DOF; ++i) g[i] = h * u[i];
-
-    // the rows of Qux = B^T P, column c
-    auto qux = [&](int r, int c) -> T {
-      if (r < DOF) return dtk * P(r, c);
-      T acc = T(0);
-#pragma unroll
-      for (int q = 0; q < DOF; ++q) acc += g[q] * P(q, c);
-      return acc + h * P(N - 1, c);
-    };
-
-    // 1. the system [Quu + reg I | Qux | Qu]
-    {
-      // PB's last column: P g-column plus h P[:, n-1]
-      T pbl[N];
-#pragma unroll
-      for (int a = 0; a < N; ++a) {
-        T acc = T(0);
-#pragma unroll
-        for (int q = 0; q < DOF; ++q) acc += P(a, q) * g[q];
-        pbl[a] = acc + P(a, N - 1) * h;
-      }
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-        // Quu[i][j] = dtk PB[i][j] (i < dof), and the chain-rule row
-        T acc = T(0);
-#pragma unroll
-        for (int q = 0; q < DOF; ++q)
-          acc += g[q] * (j < DOF ? dtk * P(q, j) : pbl[q]);
-        T last = acc + h * (j < DOF ? dtk * P(N - 1, j) : pbl[N - 1]);
-#pragma unroll
-        for (int i = 0; i < DOF; ++i) {
-          T q = dtk * (j < DOF ? dtk * P(i, j) : pbl[i]);
-          if (i == j) q = q + Rt[i] + reg;
-          A_(i, j) = q;
-        }
-        if (j == DOF) last = last + Rt[DOF] + reg;
-        A_(DOF, j) = last;
-      }
-      T acc = T(0);
-#pragma unroll
-      for (int q = 0; q < DOF; ++q) acc += g[q] * pv(q);
-#pragma unroll
-      for (int i = 0; i < DOF; ++i) X_(i, N) = Rt[i] * u[i] + dtk * pv(i);
-      X_(DOF, N) = Rt[DOF] * u[DOF] + (acc + h * pv(N - 1));
-    }
-#pragma unroll 1
-    for (int c = 0; c < N; ++c) {
-#pragma unroll
-      for (int r = 0; r < M; ++r) X_(r, c) = qux(r, c);
-    }
-
-    // 2. Gauss-Jordan without pivoting: [I | S | s]
-#pragma unroll 1
-    for (int k = 0; k < M; ++k) {
-      const T piv = T(1) / A_(k, k);
-      for (int j = k + 1; j < M; ++j) A_(k, j) = A_(k, j) * piv;
-#pragma unroll
-      for (int c = 0; c < NX; ++c) X_(k, c) = X_(k, c) * piv;
-#pragma unroll 1
-      for (int r = 0; r < M; ++r) {
-        if (r == k) continue;
-        const T fac = A_(r, k);
-        for (int j = k + 1; j < M; ++j) A_(r, j) = A_(r, j) - fac * A_(k, j);
-#pragma unroll
-        for (int c = 0; c < NX; ++c) X_(r, c) = X_(r, c) - fac * X_(k, c);
-      }
-    }
-
-    // 3. gains out: K = -S, d = -s
-    T d[M];
-#pragma unroll
-    for (int r = 0; r < M; ++r) {
-      d[r] = -X_(r, N);
-      ds[rowM + r * sB] = d[r];
-    }
-#pragma unroll 1
-    for (int r = 0; r < M; ++r) {
-      T* const Kr = Ks + (static_cast<size_t>(t) * M + r) * N * sB + b;
-      for (int c = 0; c < N; ++c) Kr[c * sB] = -X_(r, c);
-    }
-
-    // 4. value update into the other carry buffer
-#pragma unroll 1
-    for (int i = 0; i < N; ++i) {
-      T qc[M], kc[M];
-#pragma unroll
-      for (int r = 0; r < M; ++r) {
-        qc[r] = qux(r, i);
-        kc[r] = -X_(r, i);
-      }
-      T s1 = T(0), s2 = T(0);
-#pragma unroll
-      for (int r = 0; r < M; ++r) {
-        s1 += qc[r] * d[r];
-        s2 += kc[r] * d[r];
-      }
-      const T qx = lx[rowN + i * sB] + pv(i);
-      SH(nxt, TRI + i) = (qx + s1) - reg * s2;
-
-      const T l2i = L2[rowN + i * sB];
-      for (int j = i; j < N; ++j) {
-        T a1 = T(0), a2 = T(0);
-#pragma unroll
-        for (int r = 0; r < M; ++r) {
-          const T kj = -X_(r, j);
-          a1 += qc[r] * kj;
-          a2 += kc[r] * kj;
-        }
-        T stage = i == j ? l2i : T(0);
-        if (g_slot) stage = stage + g_slot[(i * N + j) * sB];
-        const T qxx = P(i, j) + stage;
-        SH(nxt, tri<N>(i, j)) = (qxx + a1) - reg * a2;
-      }
-    }
-    T* const tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-#undef A_
-#undef X_
-}
-
-template <int N, typename T>
-constexpr int time1_smem() {
-  return static_cast<int>(Time1Layout<N>::kVals * kLanes * sizeof(T));
-}
-
-template <int N, typename T>
-int launch_time1(const T* P0, const T* p0, const T* L2, const T* lx,
-                 const T* U, const T* gxx, const int* slots, const T* params,
-                 T* Ks, T* ds, int Hm1, int B, void* stream) {
+template <class Kind, typename T>
+int launch(const T* P0, const T* p0, const T* L2, const T* lx, const T* U,
+           const T* gxx, const int* slots, const T* params, T* Ks, T* ds,
+           int Hm1, int B, void* stream) {
+  using G = Launch<Kind, T>;
+  const auto kernel = G::kernel();
   cudaError_t err = cudaFuncSetAttribute(
-      time1_kernel<N, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      time1_smem<N, T>());
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (B + kLanes - 1) / kLanes;
-  time1_kernel<N, T><<<blocks, kLanes, time1_smem<N, T>(),
-                       static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<G::blocks(B), G::threads, G::smem,
+           static_cast<cudaStream_t>(stream)>>>(
       P0, p0, L2, lx, U, gxx, slots, params, Ks, ds, Hm1, B);
   return static_cast<int>(cudaGetLastError());
 }
 
 // (blocks, threads a block, dynamic shared memory, blocks the card holds on
-// one SM) of a launch of `kernel` at batch B
-template <typename Kernel>
-int geometry(Kernel kernel, int threads, int smem, int B, int* out) {
+// one SM) of a launch of the kind's kernel at batch B
+template <class Kind, typename T>
+int geometry(int B, int* out) {
+  using G = Launch<Kind, T>;
+  const auto kernel = G::kernel();
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = (B + kLanes - 1) / kLanes;
-  out[1] = threads;
-  out[2] = smem;
+  out[0] = G::blocks(B);
+  out[1] = G::threads;
+  out[2] = G::smem;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[3], kernel, threads, smem));
+      &out[3], kernel, G::threads, G::smem));
 }
-
-#undef SH
 
 }  // namespace
 
@@ -633,19 +558,19 @@ int geometry(Kernel kernel, int threads, int smem, int B, int* out) {
 // params [3+m] = (dt, dt^2/2, reg, Rt); out Ks [Hm1,m,n,B], ds [Hm1,m,B].
 // 'second' at n = 14, m = 7; 'time1' at n = m = 8 (dt unused). Each returns
 // the CUDA error code of the launch.
-#define SWEEP_ENTRY(NAME, LAUNCH, W, T)                                       \
+#define SWEEP_ENTRY(NAME, KIND, T)                                            \
   extern "C" int NAME(const T* P0, const T* p0, const T* L2, const T* lx,     \
                       const T* U, const T* gxx, const int* slots,             \
                       const T* params, T* Ks, T* ds, int Hm1, int B,          \
                       void* stream) {                                         \
-    return LAUNCH<W, T>(P0, p0, L2, lx, U, gxx, slots, params, Ks, ds, Hm1,   \
-                        B, stream);                                           \
+    return launch<KIND, T>(P0, p0, L2, lx, U, gxx, slots, params, Ks, ds,     \
+                           Hm1, B, stream);                                   \
   }
 
-SWEEP_ENTRY(segment_backward_second_f32, launch_second, 7, float)
-SWEEP_ENTRY(segment_backward_second_f64, launch_second, 7, double)
-SWEEP_ENTRY(segment_backward_time1_f32, launch_time1, 8, float)
-SWEEP_ENTRY(segment_backward_time1_f64, launch_time1, 8, double)
+SWEEP_ENTRY(segment_backward_second_f32, Second<7>, float)
+SWEEP_ENTRY(segment_backward_second_f64, Second<7>, double)
+SWEEP_ENTRY(segment_backward_time1_f32, Time1<8>, float)
+SWEEP_ENTRY(segment_backward_time1_f64, Time1<8>, double)
 
 // The launch geometry of a kind (0 'second', 1 'time1') at batch B for an
 // element of `itemsize` bytes (4 or 8) -> out[4] = (blocks, threads a
@@ -654,13 +579,8 @@ SWEEP_ENTRY(segment_backward_time1_f64, launch_time1, 8, double)
 extern "C" int segment_backward_2nd_geometry(int kind, int itemsize, int B,
                                              int* out) {
   if (kind == 0)
-    return itemsize == 4
-               ? geometry(second_kernel<7, float>, kGroup * kLanes,
-                          second_smem<7, float>(), B, out)
-               : geometry(second_kernel<7, double>, kGroup * kLanes,
-                          second_smem<7, double>(), B, out);
-  return itemsize == 4 ? geometry(time1_kernel<8, float>, kLanes,
-                                  time1_smem<8, float>(), B, out)
-                       : geometry(time1_kernel<8, double>, kLanes,
-                                  time1_smem<8, double>(), B, out);
+    return itemsize == 4 ? geometry<Second<7>, float>(B, out)
+                         : geometry<Second<7>, double>(B, out);
+  return itemsize == 4 ? geometry<Time1<8>, float>(B, out)
+                       : geometry<Time1<8>, double>(B, out);
 }

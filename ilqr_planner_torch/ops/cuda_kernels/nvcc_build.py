@@ -86,8 +86,9 @@ def launch_geometry(B, lanes_per_block, threads_per_lane, smem_values, itemsize)
     `threads_per_lane` threads each and keep `smem_values` values a lane in
     dynamic shared memory, at batch B -> dict(blocks, threads (a block),
     lanes_per_block, smem_bytes (a block), lanes_per_sm (by shared memory
-    and threads, see `resident_blocks`)). Needs no card."""
-    threads = threads_per_lane * lanes_per_block
+    and threads, see `resident_blocks`)). Threads are launched in whole
+    warps. Needs no card."""
+    threads = -(-threads_per_lane * lanes_per_block // 32) * 32
     smem = smem_values * lanes_per_block * itemsize
     return {"blocks": -(-B // lanes_per_block), "threads": threads,
             "lanes_per_block": lanes_per_block, "smem_bytes": smem,

@@ -6,10 +6,11 @@ PyTorch counterpart of the JAX package's
 `ops/pallas_kernels/segment_backward_2nd.py` (the Pallas TPU kernels
 `segment_backward_pallas_2nd` and `segment_backward_pallas_time1`), whose
 per-step body is the fleet solver's `_q_terms` + `_gains_value`. The kernels
-(`csrc/segment_backward_2nd.cu`) run all H-1 steps in one launch: 'second'
-with sixteen threads a scenario lane (a warp a column of the system, the
-next steps' rows in flight), 'time1' with one thread a lane;
-`launch_geometry` gives the blocks, threads and shared memory of a launch.
+(`csrc/segment_backward_2nd.cu`) run all H-1 steps in one launch, one
+design for both kinds: several threads a scenario lane (a thread a column
+of the system: sixteen for 'second', nine for 'time1'), the next steps'
+rows in flight; `launch_geometry` gives the blocks, threads and shared
+memory of a launch.
 `segment_backward_2nd_reference` is the same
 per-step math over [n, n, B] tensors with a Python loop over steps:
 `q_terms` (the Q blocks of the kind's structured A and B), then
@@ -38,35 +39,30 @@ LAUNCHES = {"second": 0, "time1": 0}
 # (n, m) each kind is instantiated for: the 7-DoF arm.
 KERNEL_WIDTHS = {"second": (14, 7), "time1": (8, 8)}
 
-# The launch constants of `csrc/segment_backward_2nd.cu`: lanes a block
-# (both kinds), threads a lane, and for 'second' the steps whose streamed
-# rows are in flight.
-LANES_PER_BLOCK = 32
-THREADS_PER_LANE = {"second": 16, "time1": 1}
-SECOND_STEPS_AHEAD = 2
+# The launch constants of `csrc/segment_backward_2nd.cu`, by kind: lanes a
+# block, threads a lane (a thread a column of [Qux | Qu]; 'second' has one
+# spare), steps whose streamed rows are in flight.
+LANES_PER_BLOCK = {"second": 32, "time1": 16}
+THREADS_PER_LANE = {"second": 16, "time1": 9}
+STEPS_AHEAD = {"second": 2, "time1": 2}
 
 SOURCE = nvcc_build.CSRC / "segment_backward_2nd.cu"
 
 
 def _smem_values(kind):
-    """Values a lane the kind's kernel keeps in shared memory."""
+    """Values a lane the kind's kernel keeps in shared memory: two carries
+    (P in full, p), K | d, the pivot columns with 1 / pivot, the ring of
+    streamed rows (U, lx, L2), one keypoint Hessian (upper triangle)."""
     n, m = KERNEL_WIDTHS[kind]
-    tri = n * (n + 1) // 2
-    if kind == "second":
-        # two carries (P in full, p), K | d, the pivot columns with
-        # 1 / pivot, the ring of streamed rows (U, lx, L2), one keypoint
-        # Hessian (upper triangle)
-        return (2 * (n * n + n) + m * (n + 1) + m * (m + 1)
-                + (SECOND_STEPS_AHEAD + 1) * (2 * n + m) + tri)
-    # two carries (P upper triangle, p), the system and [Qux | Qu]
-    return 2 * (tri + n) + m * m + m * (n + 1)
+    return (2 * (n * n + n) + m * (n + 1) + m * (m + 1)
+            + (STEPS_AHEAD[kind] + 1) * (2 * n + m) + n * (n + 1) // 2)
 
 
 def launch_geometry(kind, B, dtype):
     """The launch of the kind's kernel at batch B
     (`nvcc_build.launch_geometry`: blocks, threads, shared memory a block,
     lanes an SM). Needs no card."""
-    return nvcc_build.launch_geometry(B, LANES_PER_BLOCK, THREADS_PER_LANE[kind],
+    return nvcc_build.launch_geometry(B, LANES_PER_BLOCK[kind], THREADS_PER_LANE[kind],
                                       _smem_values(kind), torch.finfo(dtype).bits // 8)
 
 

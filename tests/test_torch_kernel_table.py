@@ -7,8 +7,9 @@
 (b) No module of the port, nor `chip_smoke.py`, imports JAX or the JAX
     package (an `ast` walk, so comments and strings do not count).
 (c) The launch-geometry helpers of the kernels that run several threads a
-    lane cover every lane of a batch and stay within the shared memory a
-    block may take on the H100.
+    lane (riccati at each built width) cover every lane of a batch and stay
+    within the shared memory a block may take on the H100, and their
+    constants and widths are the ones the CUDA sources define.
 """
 
 import ast
@@ -18,7 +19,8 @@ import re
 import pytest
 import torch
 
-from ilqr_planner_torch.ops.cuda_kernels import (nvcc_build, rollout_time1,
+from ilqr_planner_torch.ops.cuda_kernels import (nvcc_build, riccati,
+                                                 rollout_time1,
                                                  segment_backward_2nd)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -138,6 +140,8 @@ GEOMETRIES = {
     "second": lambda B, dt: segment_backward_2nd.launch_geometry("second", B, dt),
     "time1": lambda B, dt: segment_backward_2nd.launch_geometry("time1", B, dt),
     "rollout_time1": rollout_time1.launch_geometry,
+    **{f"riccati_{n}x{nq}": (lambda B, dt, nq=nq: riccati.launch_geometry(B, dt, nq))
+       for n, nq in riccati.KERNEL_WIDTHS},
 }
 
 
@@ -162,14 +166,35 @@ def test_launch_geometry(kernel, B, dtype):
 
 
 def test_geometry_matches_the_cuda_sources():
-    """The wrappers' launch constants are the ones the CUDA sources define."""
+    """The wrappers' launch constants and built widths are the ones the CUDA
+    sources define."""
     sweep = (CSRC / "segment_backward_2nd.cu").read_text()
+    sb2 = segment_backward_2nd
     assert re.search(r"constexpr int kLanes = (\d+);", sweep).group(1) == str(
-        segment_backward_2nd.LANES_PER_BLOCK)
+        sb2.LANES_PER_BLOCK["second"])
     assert re.search(r"constexpr int kGroup = (\d+);", sweep).group(1) == str(
-        segment_backward_2nd.THREADS_PER_LANE["second"])
+        sb2.THREADS_PER_LANE["second"])
     assert re.search(r"#define SECOND_AHEAD (\d+)", sweep).group(1) == str(
-        segment_backward_2nd.SECOND_STEPS_AHEAD)
+        sb2.STEPS_AHEAD["second"])
+    assert re.search(r"#define TIME1_LANES (\d+)", sweep).group(1) == str(
+        sb2.LANES_PER_BLOCK["time1"])
+    assert re.search(r"#define TIME1_AHEAD (\d+)", sweep).group(1) == str(
+        sb2.STEPS_AHEAD["time1"])
+    # 'time1': a thread a column of [Qux | Qu], n + 1
+    assert re.search(r"kGroup = N_ \+ 1", sweep)
+    assert sb2.THREADS_PER_LANE["time1"] == sb2.KERNEL_WIDTHS["time1"][0] + 1
+    ric = (CSRC / "riccati.cu").read_text()
+    assert re.search(r"#define RICCATI_LANES (\d+)", ric).group(1) == str(
+        riccati.LANES_PER_BLOCK)
+    assert re.search(r"#define RICCATI_STEPS (\d+)", ric).group(1) == str(
+        riccati.STEPS_PER_CHUNK)
+    assert re.search(r"kThreads = \(N \+ 1\) \* kLanes", ric)
+    assert all(riccati.THREADS_PER_LANE == n + 1 for n, _ in riccati.KERNEL_WIDTHS)
+    built = re.findall(r"RICCATI_ENTRY\((\d+), (\d+), (float|double), f(?:32|64)\)", ric)
+    assert sorted(built) == sorted((str(n), str(nq), t) for n, nq in riccati.KERNEL_WIDTHS
+                                   for t in ("float", "double"))
+    geometry = set(re.findall(r"if \(n == (\d+) && nq == (\d+)\)", ric))
+    assert geometry == {(str(n), str(nq)) for n, nq in riccati.KERNEL_WIDTHS}
     roll = (CSRC / "rollout_time1.cu").read_text()
     assert re.search(r"#define ROLLOUT_LANES (\d+)", roll).group(1) == str(
         rollout_time1.LANES_PER_BLOCK)

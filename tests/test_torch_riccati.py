@@ -34,20 +34,26 @@ N, NQ, DT = 7, 6, 0.1
 RT = [1e-5] * N
 
 
-def _random_inputs(B, H, seed=0, dense_prec=False, weight=1.0, limit_frac=0.2):
+# the residual precisions of the built widths: position + orientation,
+# joint, point
+PREC_DIAG = {6: [1, 1, 1, .1, .1, .1], 7: [1] * 7, 3: [1, 1, 1]}
+
+
+def _random_inputs(B, H, seed=0, dense_prec=False, weight=1.0, limit_frac=0.2,
+                   nq=NQ):
     """Kernel inputs as numpy arrays: Jacobians and residuals at every step,
     a live limit penalty on a share `limit_frac` of the entries, precisions
     (scaled by `weight`) at two steps (or at every step)."""
     rng = np.random.default_rng(seed)
-    J = rng.normal(size=(B, H, NQ, N)) * 0.3
-    e = rng.normal(size=(B, H, NQ)) * 0.05
+    J = rng.normal(size=(B, H, nq, N)) * 0.3
+    e = rng.normal(size=(B, H, nq)) * 0.05
     ld = (rng.uniform(size=(B, H, N)) < limit_frac).astype(float)
     lq = ld * rng.normal(size=(B, H, N)) * 0.1
     u = rng.normal(size=(B, H - 1, N)) * 0.1
-    prec = np.zeros((H, NQ, NQ))
+    prec = np.zeros((H, nq, nq))
     steps = range(H) if dense_prec else (H // 2, H - 1)
     for k in steps:
-        prec[k] = weight * np.diag([1, 1, 1, .1, .1, .1])
+        prec[k] = weight * np.diag(PREC_DIAG[nq])
     return J, e, ld, lq, u, prec
 
 
@@ -99,6 +105,24 @@ def test_twin_matches_jax_reference_at_full_horizon(dense_prec, weight):
     assert np.isfinite(K).all() and np.isfinite(d).all()
     assert np.abs(K - K_ref).max() <= 1e-9 * np.abs(K_ref).max()
     assert np.abs(d - d_ref).max() <= 1e-9 * np.abs(d_ref).max()
+
+
+@pytest.mark.parametrize("nq", [7, 3], ids=["joint_nq7", "point_nq3"])
+@pytest.mark.parametrize("dense_prec", [False, True], ids=["kp_sparse", "dense"])
+def test_twin_matches_jax_reference_at_other_widths(nq, dense_prec):
+    """The joint (nq = 7) and point (nq = 3) residual widths, which the
+    kernel is also built for; tolerance as at nq = 6."""
+    import jax.numpy as jnp
+
+    from ilqr_planner_tpu.ops.pallas_kernels.riccati import (
+        riccati_backward_reference as jref)
+
+    args = _random_inputs(4, 12, seed=8, dense_prec=dense_prec, nq=nq)
+    K_ref, d_ref = jref(*(jnp.asarray(a) for a in args), np.asarray(RT), DT)
+    K, d = _twin(args)
+    assert K.shape == (4, 11, N, N) and d.shape == (4, 11, N)
+    np.testing.assert_allclose(K, np.asarray(K_ref), atol=1e-9, rtol=0)
+    np.testing.assert_allclose(d, np.asarray(d_ref), atol=1e-9, rtol=0)
 
 
 def test_twin_matches_pallas_interpret():
@@ -184,10 +208,11 @@ def _meta(n=N, nq=NQ, B=8, H=5, dtype=torch.float32):
 
 
 def test_wrapper_checks_without_a_card():
-    with pytest.raises(ValueError, match="n=7, nq=6"):
+    built = r"built for \(n=7, nq=6\), \(n=7, nq=7\), \(n=7, nq=3\)"
+    with pytest.raises(ValueError, match=built):
         ric.riccati_backward(*_meta(n=8), RT + [1e-5], DT)
-    with pytest.raises(ValueError, match="n=7, nq=6"):
-        ric.riccati_backward(*_meta(nq=3), RT, DT)
+    with pytest.raises(ValueError, match=built):
+        ric.riccati_backward(*_meta(nq=4), RT, DT)
     with pytest.raises(TypeError, match="float32/float64"):
         ric.riccati_backward(*_meta(dtype=torch.float16), RT, DT)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
@@ -198,14 +223,28 @@ def test_wrapper_checks_without_a_card():
 
 
 @pytest.mark.cuda
-def test_kernel_matches_twin_on_card():
+@pytest.mark.parametrize("nq", [6, 7, 3])
+def test_kernel_matches_twin_on_card(nq):
     """float64: K and d within 1e-9 relative of the twin (the correctness
     gate), at a batch that leaves the last block ragged, with the precision
-    at two steps and at every step; float32: finite."""
+    at two steps and at every step, and on a horizon that is no multiple of
+    the staged chunk; float32: finite. At nq = 6 the limit penalty is live
+    on 20% of the entries and the every-step precisions have unit weight;
+    at the other widths and on the short horizon the inputs are scaled like
+    a solve's: limits live on 0.5% of the entries, every-step weight 1e-4.
+    (Every live limit, and a unit precision at every step, amplify the
+    recursion's rounding; at the joint width's full-rank precision, unit
+    weight at every step puts two orders of the same sums 1.5e-10 apart at
+    H = 20 on the CPU: `tools/riccati_rounding.py`.)"""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    for dense_prec in (False, True):
-        args = _random_inputs(300, 20, seed=6, dense_prec=dense_prec)
+    limit_frac, dense_weight = (0.2, 1.0) if nq == NQ else (0.005, 1e-4)
+    cases = [_random_inputs(300, 20, seed=6, dense_prec=dense_prec, nq=nq,
+                            limit_frac=limit_frac,
+                            weight=dense_weight if dense_prec else 1.0)
+             for dense_prec in (False, True)]
+    cases.append(_random_inputs(45, 13, seed=9, nq=nq, limit_frac=0.005))
+    for args in cases:
         for dtype in (torch.float64, torch.float32):
             cuda = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in args]
             before = ric.LAUNCHES

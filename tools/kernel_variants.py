@@ -1,15 +1,20 @@
-"""Time design variants of the two redesigned kernels on one card.
+"""Time design variants of the redesigned kernels on one card.
 
-    python3 tools/kernel_variants.py [NAME=ROOT ...]
+    python3 tools/kernel_variants.py [NAME=ROOT ...] [--only KERNEL,...]
 
-Builds `csrc/segment_backward_2nd.cu` ('second', n=14, m=7, H=400, B=4096)
-and `csrc/rollout_time1.cu` (n=m=8, H=100, B=2048) of this checkout with
-several settings of their compile-time constants (-D: the steps of rows in
-flight for the sweep; the lanes a block and the ring stages for the
-rollout), and, for every NAME=ROOT given, the sources of another checkout
-of this repository at ROOT (for example `parent=_archive/parent`, the
-parent commit unpacked with `git archive`), which have the same C entry
-points. Every variant
+Builds `csrc/segment_backward_2nd.cu` ('second', n=14, m=7, H=400, B=4096;
+'time1', n=m=8, H=100, B=2048), `csrc/rollout_time1.cu` (n=m=8, H=100,
+B=2048) and `csrc/riccati.cu` (n=7, nq=6, H=100, B=4096 and B=36864) of
+this checkout with several settings of their compile-time constants (-D:
+the steps of rows in flight and the lanes a block for the sweeps; the lanes
+a block and the ring stages for the rollout; the lanes a block and the
+steps a staged chunk for riccati), and, for every NAME=ROOT given, the
+sources of another checkout of this repository at ROOT (for example
+`parent=_archive/parent`, the parent commit unpacked with `git archive`),
+which have the same C entry points (riccati's older one-width entries are
+found by their older names). `--only` names the kernels to run (sweep,
+time1, rollout, riccati_b4096, riccati_b36864; all by default). Every
+variant
 runs on the seeded inputs of `chip_smoke.py` at the paths' shapes: float64
 against the plain twin (relative error), then CUDA-event medians in float32
 and float64 (one launch between the events, and ten back to back, which
@@ -32,11 +37,18 @@ sys.path.insert(0, REPO)
 
 import chip_smoke as cs  # noqa: E402
 from ilqr_planner_torch.ops.cuda_kernels import nvcc_build  # noqa: E402
+from ilqr_planner_torch.ops.cuda_kernels import riccati as ric  # noqa: E402
 from ilqr_planner_torch.ops.cuda_kernels import rollout_time1 as rt1  # noqa: E402
 from ilqr_planner_torch.ops.cuda_kernels import segment_backward_2nd as sb2  # noqa: E402
 
 P = ctypes.c_void_p
 SWEEP_VARIANTS = [("ahead2", ()), ("ahead1", ("SECOND_AHEAD=1",))]
+TIME1_VARIANTS = [("lanes16_ahead2", ()),
+                  ("lanes32_ahead2", ("TIME1_LANES=32",)),
+                  ("lanes16_ahead1", ("TIME1_AHEAD=1",))]
+RICCATI_VARIANTS = [("lanes32_steps1", ()),
+                    ("lanes32_steps2", ("RICCATI_STEPS=2",)),
+                    ("lanes16_steps1", ("RICCATI_LANES=16",))]
 ROLLOUT_VARIANTS = [("lanes32_stages6", ()),
                     ("lanes32_stages2", ("ROLLOUT_STAGES=2",)),
                     ("lanes32_stages3", ("ROLLOUT_STAGES=3",)),
@@ -59,17 +71,18 @@ def load_all(kernel, variants):
     return [(v[0], ctypes.CDLL(str(lib))) for v, (lib, _) in zip(variants, built)]
 
 
-def sweep_case():
-    cfg = cs.PATHS["posorn2nd"]
+def sweep_case(kind="second"):
+    cfg = cs.PATHS["posorn2nd" if kind == "second" else "timeopt"]
+    dt = 0.01 if kind == "second" else None
     n, m, hm1, kp, B = cfg["n"], cfg["m"], cfg["H"] - 1, cfg["kp_inner"], cfg["B"]
     Rt = [1e-5] * m
     args_np = cs.sweep_inputs(n, m, hm1, len(kp), B, seed=1)
     case = {}
     for dtype, tag in TAGS:
         args = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in args_np]
-        slots, params = sb2._launch_consts("second", hm1, kp, 0.01, 1e-6, tuple(Rt),
+        slots, params = sb2._launch_consts(kind, hm1, kp, dt, 1e-6, tuple(Rt),
                                            dtype, args[0].device)
-        ref = sb2.segment_backward_2nd_reference("second", *args, kp, 0.01, Rt)
+        ref = sb2.segment_backward_2nd_reference(kind, *args, kp, dt, Rt)
         out = (torch.empty((hm1, m, n, B), dtype=dtype, device="cuda"),
                torch.empty((hm1, m, B), dtype=dtype, device="cuda"))
         case[tag] = (args + [slots, params], out, ref, (hm1, B))
@@ -89,10 +102,30 @@ def rollout_case():
     return case
 
 
+def riccati_case(batch):
+    """The recursive path's riccati inputs (chip_smoke.py's, precisions at
+    two steps) at `batch` lanes."""
+    Rt = [1e-5] * cs.N
+    args_np = cs.riccati_inputs(batch) + (cs.riccati_prec(False),)
+    case = {}
+    for dtype, tag in TAGS:
+        args = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in args_np]
+        params = ric._params(0.1, 1e-6, tuple(Rt), dtype, args[0].device)
+        ref = ric.riccati_backward_reference(*args, Rt, 0.1)
+        out = tuple(torch.empty_like(r) for r in ref)
+        case[tag] = (args + [params], out, ref, (cs.H, batch))
+    return case
+
+
 def entry(lib, kernel, tag):
-    if kernel == "sweep":
-        fn = getattr(lib, f"segment_backward_second_{tag}")
+    if kernel in ("sweep", "time1"):
+        kind = "second" if kernel == "sweep" else "time1"
+        fn = getattr(lib, f"segment_backward_{kind}_{tag}")
         fn.argtypes = [P] * 10 + [ctypes.c_int, ctypes.c_int, P]
+    elif kernel.startswith("riccati"):
+        name = f"riccati_backward_7x6_{tag}"
+        fn = getattr(lib, name if hasattr(lib, name) else f"riccati_backward_{tag}")
+        fn.argtypes = [P] * 9 + [ctypes.c_int, ctypes.c_int, P]
     else:
         fn = getattr(lib, f"rollout_time1_{tag}")
         fn.argtypes = ([P] * 5 + [ctypes.c_float if tag == "f32" else ctypes.c_double]
@@ -118,10 +151,23 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
-    others = [arg.split("=", 1) for arg in sys.argv[1:]]
+    argv = sys.argv[1:]
+    only = None
+    if "--only" in argv:
+        i = argv.index("--only")
+        only = set(argv[i + 1].split(","))
+        del argv[i:i + 2]
+    others = [arg.split("=", 1) for arg in argv]
     for kernel, src, variants, make in (
             ("sweep", sb2.SOURCE, SWEEP_VARIANTS, sweep_case),
-            ("rollout", rt1.SOURCE, ROLLOUT_VARIANTS, rollout_case)):
+            ("time1", sb2.SOURCE, TIME1_VARIANTS, lambda: sweep_case("time1")),
+            ("rollout", rt1.SOURCE, ROLLOUT_VARIANTS, rollout_case),
+            ("riccati_b4096", ric.SOURCE, RICCATI_VARIANTS,
+             lambda: riccati_case(cs.REC_B)),
+            ("riccati_b36864", ric.SOURCE, RICCATI_VARIANTS,
+             lambda: riccati_case(cs.B))):
+        if only is not None and kernel not in only:
+            continue
         todo = [(name, src, defs) for name, defs in variants]
         todo += [(name, os.path.join(os.path.abspath(root), os.path.relpath(src, REPO)), ())
                  for name, root in others]
@@ -146,6 +192,8 @@ def main():
                         cs.cuda_ms(torch, call, reps=10, inner=INNER))
         for row in rows.values():
             print(json.dumps(row), flush=True)
+        del case
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
