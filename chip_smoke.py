@@ -18,17 +18,18 @@ Four paths, each through `ilqr_planner_torch.parallel.solve_batch` on a
 
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device and build: the card's name and power limit; the nvcc build of
-     every kernel source, all started together, with each ptxas
-     register/spill report;
+     every kernel at every width the checks run (one library a kernel and
+     width), all started together, with each ptxas register/spill report;
   2. each kernel against its plain PyTorch twin at its path's shapes,
      float64 (the correctness gate, 1e-9 relative) and float32, with
      CUDA-event timings and the least time the card could take (bytes or
-     operations bound); the kernels that run several threads a lane
-     (segment_backward_2nd in both kinds, rollout_time1, riccati) also with
-     their launch (blocks, threads a block, shared memory, lanes an SM) and
-     at ragged batches (below one block's lanes; not a multiple of them) on
-     a short horizon, with keypoints (precisions) at the first and the last
-     step; riccati also at its joint (nq=7) and point (nq=3) widths;
+     operations bound), and its launch (blocks, threads a block, shared
+     memory, lanes an SM) held against the built library's; each kernel
+     also at ragged batches (below one block's lanes; not a multiple of
+     them) on a short horizon, with keypoints (precisions) at the first and
+     the last step; riccati also at its joint (nq=7) and point (nq=3)
+     widths; and each kernel at the widths of a 6-DoF chain
+     (segment_backward also at n=3; riccati at (6, 6) and (6, 3));
   3. each path end to end: a first solve with every launch count set to 0
      just before it and read just after (each kernel of the path must have
      launched: once per backward sweep, and for the rollout once per
@@ -37,13 +38,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
      5 timed repeats with the spread, solves/s, median cost and iterations;
   4. each path's first 64 lanes in float64, on the card and on the CPU
      (where the wrappers run the twins): same iterations and alpha per lane,
-     cost within 1e-8 relative, or within 10 times the CPU's own spread
-     under a 1e-15 relative change of x0 where the solve is that sensitive;
-     and the recursive path against the fleet path on the card on the same
-     64 lanes, cost within 1e-8 relative; and 64 lanes of a joint-target
-     problem (nb_deriv 1, the riccati kernel at nq=7) through the recursive
-     solver on the card and on the CPU, float64, same iterations and alpha
-     per lane, cost within 1e-8 relative;
+     every lane's cost within 1e-8 relative, or within 10 times that lane's
+     own CPU spread under a 1e-15 relative change of x0 (up or down) where
+     the lane is that sensitive; and the recursive path against the fleet path on the
+     card on the same 64 lanes, cost within 1e-8 relative; and 64 lanes of
+     a joint-target problem (nb_deriv 1, the riccati kernel at nq=7)
+     through the recursive solver on the card and on the CPU, float64, same
+     iterations and alpha per lane, every lane's cost within 1e-8 relative;
+     and 64 lanes of the flagship's problem on a 6-DoF chain (panda_link0
+     to panda_link6) through the fleet on the card and on the CPU, under the
+     paths' gates;
   5. one line, no gate: at B=4096, the dense input assembly and the riccati
      kernel beside the fleet's keypoint-sparse assembly and segment_backward;
   6. two lines, no gate: the riccati kernel against its twin at inputs
@@ -107,10 +111,12 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 F64_REL_GATE = 1e-9       # kernel vs twin, float64 (only reduction order)
-# Card vs CPU final cost, float64: within 1e-8 relative, or within 10 times
-# the CPU run's own spread when its x0 moves by 1e-15 relative, whichever is
-# larger. The time-optimal solve amplifies rounding: on the CPU alone that
-# 1e-15 change moves its 20-iteration cost by up to 5.6e-8 (PERF.md, PR 2).
+# Card vs CPU final cost, float64, every lane: within 1e-8 relative, or, in
+# a sensitive solve, within 10 times the lane's own CPU spread when its x0
+# moves by 1e-15 relative (up or down), whichever is larger. The
+# time-optimal solve amplifies rounding: on the CPU alone that 1e-15 change
+# moves its 20-iteration cost by up to 5.6e-8, and the 6-DoF flagship's
+# lane that does not converge by 2.1e-7 (PERF.md).
 XCHECK_REL = 1e-8
 XCHECK_SENS_FACTOR = 10.0
 XCHECK_PERTURB = 1e-15
@@ -130,23 +136,25 @@ def fail(msg):
 # the configurations
 # ---------------------------------------------------------------------------
 
-def _panda(dtype, device):
+def _panda(dtype, device, tip="panda_tip"):
     from ilqr_planner_torch.models import PANDA_URDF, Robot, chain_from_urdf
 
-    return Robot.from_chain(chain_from_urdf(PANDA_URDF, "panda_link0",
-                                            "panda_tip", dtype=dtype,
-                                            device=device))
+    return Robot.from_chain(chain_from_urdf(PANDA_URDF, "panda_link0", tip,
+                                            dtype=dtype, device=device))
 
 
-def flagship_spec(torch, dtype, device):
+def flagship_spec(torch, dtype, device, dof=7):
+    """The flagship's problem; at dof=6 on the Panda's first six joints
+    (panda_link0 to panda_link6, a chain that is not the 7-DoF arm)."""
     from ilqr_planner_torch.systems.keypoints import PosOrnKeypoint
     from ilqr_planner_torch.systems.spec import make_spec
 
     prec = np.diag(QD6)
     kps = [PosOrnKeypoint(*T1, prec, 49), PosOrnKeypoint(*T2, prec, 99)]
-    qmax = np.ones(7) * np.pi * 10
-    return make_spec("posorn", _panda(dtype, device), kps, np.ones(7) * 1e-5,
-                     H, 1, dt=0.1, q0=Q0, q_max=qmax, q_min=-qmax, dtype=dtype,
+    qmax = np.ones(dof) * np.pi * 10
+    robot = _panda(dtype, device, "panda_tip" if dof == 7 else f"panda_link{dof}")
+    return make_spec("posorn", robot, kps, np.ones(dof) * 1e-5, H, 1, dt=0.1,
+                     q0=Q0[:dof], q_max=qmax, q_min=-qmax, dtype=dtype,
                      device=device)
 
 
@@ -335,18 +343,18 @@ def rollout_bytes(n, hm1, batch, itemsize):
 PREC_DIAG = {6: QD6, 7: [1.0] * 7, 3: [1.0] * 3}
 
 
-def riccati_inputs(batch, limit_frac=0.005, seed=0, nq=NQ, h=H):
-    """Seeded inputs of the dense Riccati sweep at horizon h, width (N, nq):
+def riccati_inputs(batch, limit_frac=0.005, seed=0, nq=NQ, h=H, n=N):
+    """Seeded inputs of the dense Riccati sweep at horizon h, width (n, nq):
     Jacobians and residuals at every step, the limit penalty live on a share
     `limit_frac` of the entries (a solve's limits are rarely active, and
     every active step amplifies the recursion's rounding: 0.5% is the
     checks' share) -> (J, e, ld, lq, u)."""
     rng = np.random.default_rng(seed)
-    J = rng.normal(size=(batch, h, nq, N)) * 0.3
+    J = rng.normal(size=(batch, h, nq, n)) * 0.3
     e = rng.normal(size=(batch, h, nq)) * 0.05
-    ld = (rng.uniform(size=(batch, h, N)) < limit_frac).astype(float)
-    lq = ld * rng.normal(size=(batch, h, N)) * 0.1
-    u = rng.normal(size=(batch, h - 1, N)) * 0.1
+    ld = (rng.uniform(size=(batch, h, n)) < limit_frac).astype(float)
+    lq = ld * rng.normal(size=(batch, h, n)) * 0.1
+    u = rng.normal(size=(batch, h - 1, n)) * 0.1
     return J, e, ld, lq, u
 
 
@@ -463,16 +471,23 @@ def phase_device_and_build():
                                                      segment_backward,
                                                      segment_backward_2nd)
 
-    mods = (segment_backward, segment_backward_2nd, rollout_time1, riccati)
+    # every width the checks below run: one library a kernel and width
+    widths = {**{f"segment_backward n={n}": (segment_backward, (n,)) for n in (7, 6, 3)},
+              **{f"{kind} dof={d}": (segment_backward_2nd, (kind, d))
+                 for kind in ("second", "time1") for d in (7, 6)},
+              **{f"rollout_time1 n={n}": (rollout_time1, (n,)) for n in (8, 7)},
+              **{f"riccati {n}x{nq}": (riccati, (n, nq))
+                 for n, nq in ((7, 6), (7, 7), (7, 3), (6, 6), (6, 3))}}
     t0 = time.time()
-    with ThreadPoolExecutor(len(mods)) as ex:     # one nvcc per source
-        built = list(ex.map(lambda mod: mod.build(), mods))
+    with ThreadPoolExecutor(len(widths)) as ex:     # one nvcc per library
+        built = list(ex.map(lambda w: w[0].build(*w[1]), widths.values()))
     build_s = time.time() - t0
     emit({"phase": "build", "nvidia_smi": smi, "build_s_all_parallel": build_s,
-          "sources": {os.path.relpath(mod.SOURCE, REPO): {
+          "libraries": {label: {
+              "source": os.path.relpath(mod.SOURCE, REPO),
               "library": os.path.relpath(lib, REPO),
               "ptxas": nvcc_build.ptxas_summary(report)}
-              for mod, (lib, report) in zip(mods, built)}})
+              for (label, (mod, _)), (lib, report) in zip(widths.items(), built)}})
 
 
 def _kernel_vs_twin(torch, name, shapes, args_np, call, twin, twin_reps,
@@ -552,10 +567,31 @@ def phase_kernels_vs_twins(torch):
         sweep_inputs(N, N, H - 1, len(KP_INNER), B),
         lambda *a: sb.segment_backward(*a, KP_INNER, 0.1, [1e-5] * N),
         lambda *a: sb.segment_backward_reference(*a, KP_INNER, 0.1, [1e-5] * N),
-        10)
+        2, inner=5)
     out.update(bound(sweep_bytes(N, H - 1, len(KP_INNER), B, 4),
                      sweep_flops(N, H - 1, len(KP_INNER), B)))
+    out["launch"] = _launch_of(torch, "segment_backward",
+                               lambda dt_: sb.launch_geometry(B, dt_, N),
+                               lambda dt_: sb.kernel_geometry(B, dt_, N))
     res["segment_backward"] = _gate_kernel(out)
+    # ragged batches on a short horizon, keypoints at the first and the last
+    # step; then the 6- and 3-DoF widths at the path's horizon
+    edge = (0, RAGGED_HM1 - 1)
+    for n, hm1, batch, kp in ((N, RAGGED_HM1, 45, edge), (N, RAGGED_HM1, B + 37, edge),
+                              (6, H - 1, REC_B + 37, KP_INNER),
+                              (3, H - 1, REC_B + 37, KP_INNER)):
+        out = _kernel_vs_twin(
+            torch, "segment_backward", {"ragged": n == N, "n": n, "H": hm1 + 1,
+                                        "B": batch, "kp_inner": kp},
+            sweep_inputs(n, n, hm1, len(kp), batch, seed=3),
+            lambda *a: sb.segment_backward(*a, kp, 0.1, [1e-5] * n),
+            lambda *a: sb.segment_backward_reference(*a, kp, 0.1, [1e-5] * n), 0)
+        if n != N:
+            out["launch"] = _launch_of(
+                torch, "segment_backward",
+                lambda dt_: sb.launch_geometry(batch, dt_, n),
+                lambda dt_: sb.kernel_geometry(batch, dt_, n))
+        res[f"segment_backward_n{n}_b{batch}"] = _gate_kernel(out)
 
     for kind, path, dt, name in (
             ("second", "posorn2nd", 0.01, "segment_backward_2nd"),
@@ -578,9 +614,23 @@ def phase_kernels_vs_twins(torch):
         out.update(bound(sweep_bytes(n, hm1, len(kp), cfg["B"], 4, m),
                          sweep2_flops(kind, n, m, hm1, len(kp), cfg["B"])))
         out["launch"] = _launch_of(
-            torch, name, lambda dt_: sb2.launch_geometry(kind, cfg["B"], dt_),
-            lambda dt_: sb2.kernel_geometry(kind, cfg["B"], dt_))
+            torch, name, lambda dt_: sb2.launch_geometry(kind, cfg["B"], dt_, 7),
+            lambda dt_: sb2.kernel_geometry(kind, cfg["B"], dt_, 7))
         res[kind] = _gate_kernel(out)
+        # the 6-DoF chain's width at the path's shape
+        n6, m6 = sb2.widths(kind, 6)
+        Rt6 = [1e-5] * m6
+        out = _kernel_vs_twin(
+            torch, name, {"kind": kind, "n": n6, "m": m6, "H": cfg["H"],
+                          "B": cfg["B"], "kp_inner": kp},
+            sweep_inputs(n6, m6, hm1, len(kp), cfg["B"], seed=5),
+            (lambda *a: sb2.segment_backward_2nd(*a, kp, dt, Rt6)) if kind == "second"
+            else (lambda *a: sb2.segment_backward_time1(*a, kp, Rt6)),
+            lambda *a: sb2.segment_backward_2nd_reference(kind, *a, kp, dt, Rt6), 0)
+        out["launch"] = _launch_of(
+            torch, name, lambda dt_: sb2.launch_geometry(kind, cfg["B"], dt_, 6),
+            lambda dt_: sb2.kernel_geometry(kind, cfg["B"], dt_, 6))
+        _gate_kernel(out)
 
     # both kinds at ragged batches; keypoints at the first and the last step
     edge = (0, RAGGED_HM1 - 1)
@@ -589,7 +639,7 @@ def phase_kernels_vs_twins(torch):
              ((45, edge), (PATHS["posorn2nd"]["B"] + 37, (5,)))),
             ("time1", "timeopt", None, "segment_backward_time1",
              ((45, edge), (PATHS["timeopt"]["B"] + 37, edge)))):
-        n, m = sb2.KERNEL_WIDTHS[kind]
+        n, m = sb2.widths(kind, 7)
         Rt = [1e-5] * m
         for batch, kp in cases:
             _gate_kernel(_kernel_vs_twin(
@@ -612,8 +662,8 @@ def phase_kernels_vs_twins(torch):
         lambda *a: rt1.rollout_time1_reference(0.5, *a), 5, inner=10)
     out.update(bound(rollout_bytes(n, hm1, Bt, 4), rollout_flops(n, hm1, Bt)))
     out["launch"] = _launch_of(torch, "rollout_time1",
-                               lambda dt_: rt1.launch_geometry(Bt, dt_),
-                               lambda dt_: rt1.kernel_geometry(Bt, dt_))
+                               lambda dt_: rt1.launch_geometry(Bt, dt_, n),
+                               lambda dt_: rt1.kernel_geometry(Bt, dt_, n))
     res["rollout_time1"] = _gate_kernel(out)
     for batch in (45, Bt + 37):
         _gate_kernel(_kernel_vs_twin(
@@ -622,6 +672,14 @@ def phase_kernels_vs_twins(torch):
             rollout_inputs(n, RAGGED_HM1, batch),
             lambda *a: rt1.rollout_time1(0.5, *a),
             lambda *a: rt1.rollout_time1_reference(0.5, *a), 0))
+    out = _kernel_vs_twin(      # the 6-DoF chain's width (n = 7)
+        torch, "rollout_time1", {"n": n - 1, "H": cfg["H"], "B": Bt, "alpha": 0.5},
+        rollout_inputs(n - 1, hm1, Bt), lambda *a: rt1.rollout_time1(0.5, *a),
+        lambda *a: rt1.rollout_time1_reference(0.5, *a), 0)
+    out["launch"] = _launch_of(torch, "rollout_time1",
+                               lambda dt_: rt1.launch_geometry(Bt, dt_, n - 1),
+                               lambda dt_: rt1.kernel_geometry(Bt, dt_, n - 1))
+    _gate_kernel(out)
 
     # the dense Riccati sweep: the recursive path's batch and the flagship's,
     # precisions at two steps (the paths' own pattern) and at every step
@@ -635,21 +693,21 @@ def phase_kernels_vs_twins(torch):
                                    "prec_steps": H if dense else 2},
                 lanes + (riccati_prec(dense),),
                 lambda *a: ric.riccati_backward(*a, Rt, 0.1),
-                lambda *a: ric.riccati_backward_reference(*a, Rt, 0.1), 3,
+                lambda *a: ric.riccati_backward_reference(*a, Rt, 0.1), 2,
                 inner=5)
             out.update(bound(riccati_bytes(N, NQ, H, batch, 4),
                              riccati_flops(N, NQ, H, batch)))
             if not dense:
                 out["launch"] = _launch_of(
-                    torch, "riccati", lambda dt_: ric.launch_geometry(batch, dt_),
-                    lambda dt_: ric.kernel_geometry(batch, dt_))
+                    torch, "riccati", lambda dt_: ric.launch_geometry(batch, dt_, N, NQ),
+                    lambda dt_: ric.kernel_geometry(batch, dt_, N, NQ))
             key = "riccati" + ("_dense" if dense else "") + (
                 "" if batch == REC_B else f"_b{batch}")
             res[key] = _gate_kernel(out)
 
     # riccati at ragged batches on a short horizon, precisions at the first
-    # and the last step; then the joint and point widths at the path's
-    # horizon
+    # and the last step; then the joint and point widths, and the 6-DoF
+    # chain's posorn (= joint) and point widths, at the path's horizon
     h = RAGGED_HM1 + 1
     for batch in (45, REC_B + 37):
         _gate_kernel(_kernel_vs_twin(
@@ -659,16 +717,18 @@ def phase_kernels_vs_twins(torch):
             + (riccati_prec(False, h=h, steps=(0, h - 1)),),
             lambda *a: ric.riccati_backward(*a, Rt, 0.1),
             lambda *a: ric.riccati_backward_reference(*a, Rt, 0.1), 0))
-    for nq in (7, 3):
+    for n, nq in ((N, 7), (N, 3), (6, 6), (6, 3)):
+        Rt_n = [1e-5] * n
         out = _kernel_vs_twin(
-            torch, "riccati", {"n": N, "nq": nq, "H": H, "B": REC_B + 37,
+            torch, "riccati", {"n": n, "nq": nq, "H": H, "B": REC_B + 37,
                                "prec_steps": 2},
-            riccati_inputs(REC_B + 37, seed=4, nq=nq) + (riccati_prec(False, nq=nq),),
-            lambda *a: ric.riccati_backward(*a, Rt, 0.1),
-            lambda *a: ric.riccati_backward_reference(*a, Rt, 0.1), 0)
+            riccati_inputs(REC_B + 37, seed=4, nq=nq, n=n)
+            + (riccati_prec(False, nq=nq),),
+            lambda *a: ric.riccati_backward(*a, Rt_n, 0.1),
+            lambda *a: ric.riccati_backward_reference(*a, Rt_n, 0.1), 0)
         out["launch"] = _launch_of(
-            torch, "riccati", lambda dt_: ric.launch_geometry(REC_B + 37, dt_, nq),
-            lambda dt_: ric.kernel_geometry(REC_B + 37, dt_, nq))
+            torch, "riccati", lambda dt_: ric.launch_geometry(REC_B + 37, dt_, n, nq),
+            lambda dt_: ric.kernel_geometry(REC_B + 37, dt_, n, nq))
         _gate_kernel(out)
     return res
 
@@ -926,54 +986,91 @@ def _solver(path, spec, nb_iter):
     return make_fleet_solver(spec, nb_iter)
 
 
-def phase_cross_check(torch, path):
-    """The path's first 64 lanes in float64 on the card and on the CPU; for
-    the recursive path also against the fleet path on the card."""
-    spec_fn, batch_fn, batch, nb_iter = _config(path)
-    x0s, U0s = batch_fn(batch)
-    x0s, U0s = x0s[:XCHECK_B], U0s[:XCHECK_B]
-    spec_gpu = spec_fn(torch, torch.float64, "cuda")
-    _reset_counts()
-    gpu = _solver(path, spec_gpu, nb_iter)(x0s, U0s)
-    torch.cuda.synchronize()
-    gpu_counts = _read_counts()
-    _reset_counts()
-    cpu_solve = _solver(path, spec_fn(torch, torch.float64, "cpu"), nb_iter)
-    cpu = cpu_solve(x0s, U0s)
-    cpu_counts = _read_counts()
-    # the CPU's own spread: the same solve from x0 moved by 1e-15 relative
-    x0p = x0s.copy()
-    x0p[:, :7] *= 1.0 + XCHECK_PERTURB
-    c_cpu = cpu.cost.numpy()
-    spread = float(np.max(np.abs(cpu_solve(x0p, U0s).cost.numpy() - c_cpu)
-                          / np.abs(c_cpu)))
-    gate = max(XCHECK_REL, XCHECK_SENS_FACTOR * spread)
-    c_gpu = gpu.cost.cpu().numpy()
-    rel = float(np.max(np.abs(c_gpu - c_cpu) / np.abs(c_cpu)))
-    out = {"phase": "card_vs_cpu", "path": path, "batch": XCHECK_B,
+def _card_vs_cpu(torch, path, solve, spec_fn, x0s, U0s, kernels, sensitive,
+                 **info):
+    """64 lanes of a problem in float64, `solve(spec, x0s, U0s)` on the card
+    (the path's kernels) and on the CPU (their twins): the same iterations
+    and alpha on every lane, and every lane's cost within 1e-8 relative;
+    where the solve is `sensitive`, a lane over 1e-8 whose CPU cost moves by
+    more than 1e-9 relative when x0 moves by 1e-15 relative (up or down) is
+    held to 10 times that move instead. The card must launch each of `kernels`, the CPU none.
+    -> (the card's result, the card's spec)"""
+    res, counts, specs = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        specs[dev] = spec_fn(torch, torch.float64, dev)
+        _reset_counts()
+        res[dev] = solve(specs[dev], x0s, U0s)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        counts[dev] = _read_counts()
+    gpu, cpu = res["cuda"], res["cpu"]
+    c_gpu, c_cpu = gpu.cost.cpu().numpy(), cpu.cost.numpy()
+    rel = np.abs(c_gpu - c_cpu) / np.abs(c_cpu)
+    tol = np.full(rel.shape, XCHECK_REL)
+    out = {"phase": "card_vs_cpu", "path": path, **info, "batch": len(c_cpu),
            "dtype": "float64",
            "same_iterations": bool(np.array_equal(gpu.iterations.cpu().numpy(),
                                                   cpu.iterations.numpy())),
            "same_alpha": bool(np.array_equal(gpu.alpha.cpu().numpy(),
                                              cpu.alpha.numpy())),
-           "cost_max_rel_diff": rel,
-           "cost_median_rel_diff": float(np.median(np.abs(c_gpu - c_cpu)
-                                                   / np.abs(c_cpu))),
-           "cpu_self_spread_x0_1e-15": spread, "tolerance": gate,
-           "card_kernel_launches": {k: gpu_counts[k] for k in KERNELS},
-           "cpu_kernel_launches": {k: cpu_counts[k] for k in KERNELS},
-           "U_max_abs_diff": float((gpu.U.cpu() - cpu.U).abs().max())}
+           "cost_max_rel_diff": float(rel.max()),
+           "cost_median_rel_diff": float(np.median(rel)),
+           "tolerance": XCHECK_REL}
+    over = np.flatnonzero(rel > XCHECK_REL)
+    if sensitive and over.size:
+        # each lane's own CPU spread: the same solve of the whole batch (a
+        # lane solved apart rounds otherwise) from x0 (its joint positions)
+        # moved by 1e-15 relative up and down, the larger move
+        spread = np.zeros_like(rel)
+        for sign in (1.0, -1.0):
+            x0p = x0s.copy()
+            x0p[:, :7] *= 1.0 + sign * XCHECK_PERTURB
+            moved = solve(specs["cpu"], x0p, U0s).cost.numpy()
+            spread = np.maximum(spread, np.abs(moved - c_cpu) / np.abs(c_cpu))
+        tol[over] = np.maximum(XCHECK_REL, XCHECK_SENS_FACTOR * spread[over])
+        out["lanes_over_1e-8"] = [
+            {"lane": int(i), "rel_diff": float(rel[i]),
+             "cpu_spread": float(spread[i]), "tolerance": float(tol[i])}
+            for i in over]
+    out.update({
+        "lanes_over_tolerance": [int(i) for i in np.flatnonzero(rel > tol)],
+        "median_cost": float(np.median(c_cpu)),
+        "median_iterations": float(np.median(cpu.iterations.numpy())),
+        "card_kernel_launches": {k: counts["cuda"][k] for k in KERNELS},
+        "cpu_kernel_launches": {k: counts["cpu"][k] for k in KERNELS},
+        "U_max_abs_diff": float((gpu.U.cpu() - cpu.U).abs().max())})
     emit(out)
-    if not (out["same_iterations"] and out["same_alpha"] and rel <= gate):
+    if not (np.isfinite(c_gpu).all() and np.isfinite(c_cpu).all()):
+        fail(f"{path}: non-finite costs")
+    if not (out["same_iterations"] and out["same_alpha"]
+            and not out["lanes_over_tolerance"]):
         fail(f"{path}: card and CPU disagree")
-    if sum(out["card_kernel_launches"].values()) == 0 or any(
-            out["cpu_kernel_launches"].values()):
-        fail(f"{path}: the card run must launch the kernels and the CPU run "
-             f"must not")
+    if (any(counts["cuda"][k] == 0 for k in kernels)
+            or any(out["cpu_kernel_launches"].values())):
+        fail(f"{path}: the card run must launch {list(kernels)} and the CPU "
+             f"run must not launch a kernel")
+    return gpu, specs["cuda"]
+
+
+# each path's kernels, which its card run must launch
+PATH_KERNELS = {"flagship": ("segment_backward",), "recursive": ("riccati",),
+                "posorn2nd": ("segment_backward_2nd",),
+                "timeopt": ("segment_backward_time1", "rollout_time1")}
+
+
+def phase_cross_check(torch, path):
+    """The path's first 64 lanes on the card and on the CPU (its solves are
+    sensitive: the timeopt path's and some lanes of the others'); for the
+    recursive path also against the fleet path on the card."""
+    spec_fn, batch_fn, batch, nb_iter = _config(path)
+    x0s, U0s = batch_fn(batch)
+    gpu, spec_gpu = _card_vs_cpu(
+        torch, path, lambda spec, x, u: _solver(path, spec, nb_iter)(x, u), spec_fn,
+        x0s[:XCHECK_B], U0s[:XCHECK_B], PATH_KERNELS[path], True)
     if path != "recursive":
         return
-    fleet = _solver("flagship", spec_gpu, nb_iter)(x0s, U0s)
-    c_fleet = fleet.cost.cpu().numpy()
+    fleet = _solver("flagship", spec_gpu, nb_iter)(x0s[:XCHECK_B], U0s[:XCHECK_B])
+    c_gpu, c_fleet = gpu.cost.cpu().numpy(), fleet.cost.cpu().numpy()
     rel = float(np.max(np.abs(c_gpu - c_fleet) / np.abs(c_fleet)))
     out = {"phase": "recursive_vs_fleet", "batch": XCHECK_B, "dtype": "float64",
            "same_iterations": bool(torch.equal(gpu.iterations, fleet.iterations)),
@@ -1000,44 +1097,29 @@ def joint_spec(torch, dtype, device):
                      device=device)
 
 
-def phase_joint_cross_check(torch):
-    """64 lanes of the joint-target problem through the recursive solver,
-    float64, on the card (the riccati kernel at nq = 7) and on the CPU (its
-    twin): same iterations and alpha per lane, cost within 1e-8 relative."""
+def _solve_batch(prefer_fleet):
     from ilqr_planner_torch.parallel import solve_batch
 
+    return lambda spec, x0s, U0s: solve_batch(spec, {"x0": x0s}, U0s, NB_ITER,
+                                              prefer_fleet=prefer_fleet)
+
+
+def phase_joint_cross_check(torch):
+    """64 lanes of the joint-target problem through the recursive solver
+    (the riccati kernel at nq = 7), every lane within 1e-8."""
     q0s, U0s = recursive_batch(XCHECK_B)
-    res, counts = {}, {}
-    for dev in ("cuda", "cpu"):
-        spec = joint_spec(torch, torch.float64, dev)
-        _reset_counts()
-        res[dev] = solve_batch(spec, {"x0": q0s}, U0s, NB_ITER, prefer_fleet=False)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        counts[dev] = _read_counts()
-    gpu, cpu = res["cuda"], res["cpu"]
-    c_gpu, c_cpu = gpu.cost.cpu().numpy(), cpu.cost.numpy()
-    rel = float(np.max(np.abs(c_gpu - c_cpu) / np.abs(c_cpu)))
-    out = {"phase": "card_vs_cpu", "path": "joint_recursive", "nq": 7,
-           "batch": XCHECK_B, "dtype": "float64",
-           "same_iterations": bool(np.array_equal(gpu.iterations.cpu().numpy(),
-                                                  cpu.iterations.numpy())),
-           "same_alpha": bool(np.array_equal(gpu.alpha.cpu().numpy(),
-                                             cpu.alpha.numpy())),
-           "cost_max_rel_diff": rel, "tolerance": XCHECK_REL,
-           "median_cost": float(np.median(c_cpu)),
-           "median_iterations": float(np.median(cpu.iterations.numpy())),
-           "card_riccati_launches": counts["cuda"]["riccati"],
-           "cpu_riccati_launches": counts["cpu"]["riccati"],
-           "U_max_abs_diff": float((gpu.U.cpu() - cpu.U).abs().max())}
-    emit(out)
-    if not (np.isfinite(c_gpu).all() and np.isfinite(c_cpu).all()):
-        fail("joint_recursive: non-finite costs")
-    if not (out["same_iterations"] and out["same_alpha"] and rel <= XCHECK_REL):
-        fail("joint_recursive: card and CPU disagree")
-    if out["card_riccati_launches"] == 0 or out["cpu_riccati_launches"]:
-        fail("joint_recursive: the card run must launch the riccati kernel "
-             "and the CPU run must not")
+    _card_vs_cpu(torch, "joint_recursive", _solve_batch(False), joint_spec, q0s,
+                 U0s, ("riccati",), False, nq=7)
+
+
+def phase_chain6_cross_check(torch):
+    """64 lanes of the flagship's problem on the 6-DoF chain through the
+    fleet (segment_backward at n = 6, built at first use), under the paths'
+    gate."""
+    q0s, U0s = flagship_batch(XCHECK_B)
+    _card_vs_cpu(torch, "flagship_6dof", _solve_batch(True),
+                 lambda *a: flagship_spec(*a, dof=6), q0s[:, :6], U0s[..., :6],
+                 ("segment_backward",), True, dof=6)
 
 
 def phase_dense_vs_sparse(torch):
@@ -1168,6 +1250,7 @@ def main():
     for path in e2e:
         timed("cross_checks", phase_cross_check, torch, path)
     timed("cross_checks", phase_joint_cross_check, torch)
+    timed("cross_checks", phase_chain6_cross_check, torch)
     timed("dense_vs_sparse", phase_dense_vs_sparse, torch)
     timed("riccati_rounding", phase_riccati_rounding, torch)
     profiled = {}           # kernel -> device ms a launch in its path's window
@@ -1188,6 +1271,7 @@ def main():
                 "bound_ms": k["bound_ms_f32"], "bound_by": k["bound_by"],
                 "library_ms": None,
                 "profiled_device_ms": profiled.get(name),
+                "launch": k.get("launch"),
                 **{key: k[f"kernel_{key}"] for key in
                    ("ms_one_launch_f32", "ms_one_launch_f64")
                    if f"kernel_{key}" in k}}

@@ -18,8 +18,8 @@
 // and writes K, d. The sums run in the order of the plain twin
 // (riccati_backward_reference), so float64 differs from it by rounding only.
 // A step whose precision is all zero is not skipped: a residual at every step
-// is this kernel's contract. Widths: n = 7 with nq = 6 (posorn), 7 (joint)
-// and 3 (point), float32 and float64.
+// is this kernel's contract. Widths: any chain n with nq = 6 (posorn), n
+// (joint) and 3 (point), float32 and float64, one library a width.
 //
 // What bounds it on the H100: by its bytes, memory (each step streams
 // nq n + nq + 3 n values in and n n + n out a lane, about 0.5 KB in float32,
@@ -102,6 +102,11 @@
 
 namespace {
 
+// The width: n (the chain's DoF) and nq (the residual: 6 position +
+// orientation, n joint, 3 point), one library a width, built at first use.
+#if !defined(RICCATI_N) || !defined(RICCATI_NQ)
+#error "build with -DRICCATI_N=<n> -DRICCATI_NQ=<nq>"
+#endif
 #ifndef RICCATI_LANES
 #define RICCATI_LANES 32
 #endif
@@ -499,7 +504,8 @@ int geometry(int B, int* out) {
 
 }  // namespace
 
-// Plain C entry points for ctypes, one a width (n x nq) and type.
+// Plain C entry points for ctypes: this library's width (n x nq), the
+// RICCATI_N and RICCATI_NQ it was built with, in both types.
 // Contiguous batch-leading arrays: J [B,H,nq,n], e [B,H,nq], ld/lq [B,H,n],
 // u [B,H-1,n], prec [H,nq,nq], params [2+n] = (dt, reg, Rt); out
 // K [B,H-1,n,n], d [B,H-1,n]; H >= 2, B >= 1. Each returns the CUDA error
@@ -512,28 +518,19 @@ int geometry(int B, int* out) {
     return launch<N, NQ, T>(J, e, ld, lq, u, prec, params, K, d, H, B,         \
                             stream);                                           \
   }
+// one more level, so that RICCATI_N and RICCATI_NQ expand before ## pastes
+#define RICCATI_ENTRY_OF(N, NQ, T, TAG) RICCATI_ENTRY(N, NQ, T, TAG)
 
-RICCATI_ENTRY(7, 6, float, f32)
-RICCATI_ENTRY(7, 6, double, f64)
-RICCATI_ENTRY(7, 7, float, f32)
-RICCATI_ENTRY(7, 7, double, f64)
-RICCATI_ENTRY(7, 3, float, f32)
-RICCATI_ENTRY(7, 3, double, f64)
+RICCATI_ENTRY_OF(RICCATI_N, RICCATI_NQ, float, f32)
+RICCATI_ENTRY_OF(RICCATI_N, RICCATI_NQ, double, f64)
 
 // The launch geometry of width (n, nq) at batch B for an element of
 // `itemsize` bytes (4 or 8) -> out[4] = (blocks, threads a block, dynamic
 // shared memory in bytes, resident blocks an SM by the CUDA occupancy
 // calculator). Returns a CUDA error code; 1 (cudaErrorInvalidValue) for a
-// width that is not built.
+// width that is not this library's.
 extern "C" int riccati_geometry(int n, int nq, int itemsize, int B, int* out) {
-  if (n == 7 && nq == 6)
-    return itemsize == 4 ? geometry<7, 6, float>(B, out)
-                         : geometry<7, 6, double>(B, out);
-  if (n == 7 && nq == 7)
-    return itemsize == 4 ? geometry<7, 7, float>(B, out)
-                         : geometry<7, 7, double>(B, out);
-  if (n == 7 && nq == 3)
-    return itemsize == 4 ? geometry<7, 3, float>(B, out)
-                         : geometry<7, 3, double>(B, out);
-  return 1;
+  if (n != RICCATI_N || nq != RICCATI_NQ) return 1;
+  return itemsize == 4 ? geometry<RICCATI_N, RICCATI_NQ, float>(B, out)
+                       : geometry<RICCATI_N, RICCATI_NQ, double>(B, out);
 }

@@ -1,5 +1,5 @@
 // Whole-trajectory closed-loop trial rollout of the time-optimal first-order
-// kind for Hopper (sm_90a): eight threads a scenario lane, the inputs of the
+// kind for Hopper (sm_90a): n threads a scenario lane, the inputs of the
 // next steps in flight through a cp.async ring in shared memory.
 //
 // Replaces ilqr_planner_tpu/ops/pallas_kernels/rollout_time1.py::
@@ -57,6 +57,11 @@
 
 namespace {
 
+// The width n = m (the chain's DoF plus the time state), one library a
+// width, built at first use.
+#ifndef ROLLOUT_N
+#error "build with -DROLLOUT_N=<n>"
+#endif
 #ifndef ROLLOUT_LANES
 #define ROLLOUT_LANES 32
 #endif
@@ -235,26 +240,31 @@ int geometry(int B, int* out) {
 
 }  // namespace
 
-// Plain C entry points for ctypes. Arrays are contiguous with the lane axis
-// minor: Ks [Hm1,m,n,B], ds/Uref [Hm1,m,B], Xref [Hm1+1,n,B] (rows 0..Hm1-1
-// read), x0 [n,B]; out X [Hm1+1,n,B] (row 0 = x0), U [Hm1,m,B],
-// du2 [Hm1,B]. n = m = 8. Each returns the CUDA error code of the launch.
-#define ROLLOUT_ENTRY(NAME, N, T)                                             \
-  extern "C" int NAME(const T* Ks, const T* ds, const T* Xref, const T* Uref, \
-                      const T* x0, T alpha, T* X, T* U, T* du2, int Hm1,      \
-                      int B, void* stream) {                                  \
+// Plain C entry points for ctypes, rollout_time1_n<n>_<type> for this
+// library's width n = m = ROLLOUT_N. Arrays are contiguous with the lane
+// axis minor: Ks [Hm1,m,n,B], ds/Uref [Hm1,m,B], Xref [Hm1+1,n,B] (rows
+// 0..Hm1-1 read), x0 [n,B]; out X [Hm1+1,n,B] (row 0 = x0), U [Hm1,m,B],
+// du2 [Hm1,B]. Each returns the CUDA error code of the launch.
+#define ROLLOUT_ENTRY(N, T, TAG)                                              \
+  extern "C" int rollout_time1_n##N##_##TAG(                                  \
+      const T* Ks, const T* ds, const T* Xref, const T* Uref, const T* x0,    \
+      T alpha, T* X, T* U, T* du2, int Hm1, int B, void* stream) {            \
     return launch<N, T>(Ks, ds, Xref, Uref, x0, alpha, X, U, du2, Hm1, B,     \
                         stream);                                              \
   }
+// one more level, so that ROLLOUT_N expands before ## pastes
+#define ROLLOUT_ENTRY_OF(N, T, TAG) ROLLOUT_ENTRY(N, T, TAG)
 
-ROLLOUT_ENTRY(rollout_time1_f32, 8, float)
-ROLLOUT_ENTRY(rollout_time1_f64, 8, double)
+ROLLOUT_ENTRY_OF(ROLLOUT_N, float, f32)
+ROLLOUT_ENTRY_OF(ROLLOUT_N, double, f64)
 
-// The launch geometry at batch B for an element of `itemsize` bytes (4 or
-// 8) -> out[4] = (blocks, threads a block, dynamic shared memory in bytes,
-// resident blocks an SM by the CUDA occupancy calculator). Returns a CUDA
-// error code.
-extern "C" int rollout_time1_geometry(int itemsize, int B, int* out) {
-  return itemsize == 4 ? geometry<8, float>(B, out)
-                       : geometry<8, double>(B, out);
+// The launch geometry of width n at batch B for an element of `itemsize`
+// bytes (4 or 8) -> out[4] = (blocks, threads a block, dynamic shared
+// memory in bytes, resident blocks an SM by the CUDA occupancy calculator).
+// Returns a CUDA error code; 1 (cudaErrorInvalidValue) for a width that is
+// not this library's.
+extern "C" int rollout_time1_geometry(int n, int itemsize, int B, int* out) {
+  if (n != ROLLOUT_N) return 1;
+  return itemsize == 4 ? geometry<ROLLOUT_N, float>(B, out)
+                       : geometry<ROLLOUT_N, double>(B, out);
 }

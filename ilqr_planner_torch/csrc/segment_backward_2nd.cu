@@ -48,8 +48,8 @@
 //    step.
 //  * Thread w < n owns column w of the right-hand side [Qux | Qu], thread n
 //    the column Qu, thread w < m also column w of Quu + reg I, all in
-//    registers through the elimination ('second': 16 threads a lane, 15 own
-//    a column; 'time1': 9). At pivot k the owner of column k publishes it
+//    registers through the elimination ('second': n + 2 threads a lane, n + 1
+//    own a column; 'time1': n + 1; at 7 DoF 16 and 9). At pivot k the owner of column k publishes it
 //    and 1 / pivot (m + 1 values) in shared memory and one barrier later
 //    every owner updates its columns; each entry sees the operations of the
 //    one-thread elimination in its order. 'time1' reads B from the lane's
@@ -107,6 +107,12 @@
 
 namespace {
 
+// The kind and width of this library, built at first use: SECOND_M = m
+// (the chain's DoF; n = 2m) for 'second', or TIME1_N = n = m (the DoF plus
+// the time state) for 'time1'.
+#if defined(SECOND_M) == defined(TIME1_N)
+#error "build with one of -DSECOND_M=<m> and -DTIME1_N=<n>"
+#endif
 #ifndef SECOND_AHEAD
 #define SECOND_AHEAD 2
 #endif
@@ -117,11 +123,12 @@ namespace {
 #define TIME1_AHEAD 2
 #endif
 
-// 'second': 32 lanes a block, sixteen threads a lane (warps a block)
+// 'second': 32 lanes a block, n + 2 threads a lane (warps a block): one a
+// column of [Qux | Qu] and a spare that takes its share of the copies
+// (sixteen at 7 DoF)
 constexpr int kLanes = 32;
-constexpr int kGroup = 16;
 constexpr int kAhead = SECOND_AHEAD;  // steps whose rows are in flight
-// 'time1': n + 1 = 9 threads a lane. At 2048 lanes (the timeopt path), 16
+// 'time1': n + 1 threads a lane (9 at 7 DoF). At 2048 lanes (the timeopt path), 16
 // lanes a block are 128 blocks, one on each of 128 of the 132 SMs; 32 lanes
 // a block, 64 blocks on 64 SMs, measured 1.1x (float32) and 1.3x (float64)
 // slower.
@@ -140,7 +147,7 @@ template <int M_>
 struct Second {
   static constexpr bool kSecond = true;
   static constexpr int M = M_, N = 2 * M_, DOF = M_;
-  static constexpr int kLanes = ::kLanes, kGroup = ::kGroup, kAhead = ::kAhead;
+  static constexpr int kLanes = ::kLanes, kGroup = N + 2, kAhead = ::kAhead;
 };
 
 template <int N_>
@@ -552,12 +559,13 @@ int geometry(int B, int* out) {
 
 }  // namespace
 
-// Plain C entry points for ctypes. Arrays are contiguous with the lane axis
-// minor: P0 [n,n,B], p0 [n,B], L2/lx [Hm1,n,B], U [Hm1,m,B],
+// Plain C entry points for ctypes, named after this library's kind and
+// width: segment_backward_second_m<m>_<type> or
+// segment_backward_time1_n<n>_<type>. Arrays are contiguous with the lane
+// axis minor: P0 [n,n,B], p0 [n,B], L2/lx [Hm1,n,B], U [Hm1,m,B],
 // gxx [n_kp,n,n,B] (upper triangle read), slots [Hm1] (-1 off keypoints),
-// params [3+m] = (dt, dt^2/2, reg, Rt); out Ks [Hm1,m,n,B], ds [Hm1,m,B].
-// 'second' at n = 14, m = 7; 'time1' at n = m = 8 (dt unused). Each returns
-// the CUDA error code of the launch.
+// params [3+m] = (dt, dt^2/2, reg, Rt); out Ks [Hm1,m,n,B], ds [Hm1,m,B]
+// ('time1': dt unused). Each returns the CUDA error code of the launch.
 #define SWEEP_ENTRY(NAME, KIND, T)                                            \
   extern "C" int NAME(const T* P0, const T* p0, const T* L2, const T* lx,     \
                       const T* U, const T* gxx, const int* slots,             \
@@ -566,21 +574,33 @@ int geometry(int B, int* out) {
     return launch<KIND, T>(P0, p0, L2, lx, U, gxx, slots, params, Ks, ds,     \
                            Hm1, B, stream);                                   \
   }
+// the names, one more level so that the width expands before ## pastes
+#define SWEEP_NAME(KIND, W, TAG) segment_backward_##KIND##_##W##_##TAG
+#define SWEEP_NAME_OF(KIND, W, TAG) SWEEP_NAME(KIND, W, TAG)
+#define CAT(A, B) A##B
+#define CAT_OF(A, B) CAT(A, B)
 
-SWEEP_ENTRY(segment_backward_second_f32, Second<7>, float)
-SWEEP_ENTRY(segment_backward_second_f64, Second<7>, double)
-SWEEP_ENTRY(segment_backward_time1_f32, Time1<8>, float)
-SWEEP_ENTRY(segment_backward_time1_f64, Time1<8>, double)
+#ifdef SECOND_M
+using Built = Second<SECOND_M>;
+constexpr int kKind = 0, kWidth = SECOND_M;
+SWEEP_ENTRY(SWEEP_NAME_OF(second, CAT_OF(m, SECOND_M), f32), Built, float)
+SWEEP_ENTRY(SWEEP_NAME_OF(second, CAT_OF(m, SECOND_M), f64), Built, double)
+#else
+using Built = Time1<TIME1_N>;
+constexpr int kKind = 1, kWidth = TIME1_N;
+SWEEP_ENTRY(SWEEP_NAME_OF(time1, CAT_OF(n, TIME1_N), f32), Built, float)
+SWEEP_ENTRY(SWEEP_NAME_OF(time1, CAT_OF(n, TIME1_N), f64), Built, double)
+#endif
 
-// The launch geometry of a kind (0 'second', 1 'time1') at batch B for an
-// element of `itemsize` bytes (4 or 8) -> out[4] = (blocks, threads a
-// block, dynamic shared memory in bytes, resident blocks an SM by the CUDA
-// occupancy calculator). Returns a CUDA error code.
-extern "C" int segment_backward_2nd_geometry(int kind, int itemsize, int B,
-                                             int* out) {
-  if (kind == 0)
-    return itemsize == 4 ? geometry<Second<7>, float>(B, out)
-                         : geometry<Second<7>, double>(B, out);
-  return itemsize == 4 ? geometry<Time1<8>, float>(B, out)
-                       : geometry<Time1<8>, double>(B, out);
+// The launch geometry of a kind (0 'second', 1 'time1') and width (m for
+// 'second', n for 'time1') at batch B for an element of `itemsize` bytes
+// (4 or 8) -> out[4] = (blocks, threads a block, dynamic shared memory in
+// bytes, resident blocks an SM by the CUDA occupancy calculator). Returns a
+// CUDA error code; 1 (cudaErrorInvalidValue) for a kind or width that is not
+// this library's.
+extern "C" int segment_backward_2nd_geometry(int kind, int width, int itemsize,
+                                             int B, int* out) {
+  if (kind != kKind || width != kWidth) return 1;
+  return itemsize == 4 ? geometry<Built, float>(B, out)
+                       : geometry<Built, double>(B, out);
 }

@@ -2,8 +2,10 @@
 
 Every kernel module keeps its `.cu` in `ilqr_planner_torch/csrc/`. At first
 use the source is compiled for sm_90a into a shared library with a plain C
-interface, named by the hash of its content, in `ilqr_planner_torch/build/`
-(so an edited source builds anew and an unchanged one is built once); the
+interface, one library for each width the caller asks for (the width enters
+as -D defines), named by the hash of the source's content and the defines,
+in `ilqr_planner_torch/build/` (so an edited source builds anew and an
+unchanged one is built once); the
 ptxas report (registers, spills, shared memory per kernel) is kept beside
 it. Nothing here runs at import time.
 """
@@ -115,18 +117,20 @@ def ptxas_summary(report: str):
             if "entry function" in ln or "registers" in ln or "spill" in ln]
 
 
-def load(source: Path, entries: dict):
-    """Build `source` if needed and load it; `entries` maps each exported C
-    function to its ctypes argument types (each returns an int, the CUDA
-    error code). The library is loaded once per process."""
-    source = Path(source)
-    lib = _loaded.get(source)
+def load(source: Path, entries: dict, defines=()):
+    """Build `source` with `defines` (as `build`) if needed and load it;
+    `entries` maps each exported C function to its ctypes argument types
+    (each returns an int, the CUDA error code). Each (source, defines) is
+    loaded once per process: a kernel's widths are one library each, built
+    at first use."""
+    key = (Path(source), tuple(defines))
+    lib = _loaded.get(key)
     if lib is None:
-        path, _ = build(source)
+        path, _ = build(*key)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in entries.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-        _loaded[source] = lib
+        _loaded[key] = lib
     return lib

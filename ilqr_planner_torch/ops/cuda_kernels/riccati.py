@@ -25,8 +25,10 @@ taken (the TPU kernel's multiple-of-128 lane tiles are not carried over).
   -> K [B, H-1, n, n], d [B, H-1, n]
 
 `riccati_backward` runs the twin for CPU tensors and the kernel for CUDA
-tensors (n = 7 with nq = 6, 7 or 3: the posorn, joint and point kinds;
-float32 or float64); it never falls back from one to the other. The kernel
+tensors (any chain n up to `MAX_N`, with nq = 6, n or 3: the posorn, joint
+and point kinds; float32 or float64); it never falls back from one to the
+other, and a width the source cannot take raises before any build. Each
+width is its own library, built at first use. The kernel
 runs n + 1 threads a scenario lane (a thread a column of the system, one for
 the vectors) and stages the next step's inputs while a step is computed;
 `launch_geometry` gives the blocks, threads and shared memory of a launch.
@@ -40,18 +42,20 @@ import torch
 from ilqr_planner_torch.ops.cuda_kernels import nvcc_build
 
 __all__ = ["riccati_backward", "riccati_backward_reference", "build",
-           "LAUNCHES", "KERNEL_WIDTHS", "launch_geometry", "kernel_geometry"]
+           "LAUNCHES", "MAX_N", "residual_widths", "launch_geometry",
+           "kernel_geometry"]
 
 # Kernel launches so far: one per CUDA call of `riccati_backward`.
 LAUNCHES = 0
-# The widths (n, nq) the kernel is instantiated for: the 7-DoF arm's state
-# with the position + orientation (6), joint (7) and point (3) residuals.
-KERNEL_WIDTHS = ((7, 6), (7, 7), (7, 3))
+# The largest chain n the source takes, by type: the largest whose block
+# fits one H100 SM (n + 1 threads a lane; the shared memory at nq =
+# max(6, n)) and whose every width up to it builds without a register spill
+# (`python3 tools/width_scan.py`, on the card).
+MAX_N = {torch.float32: 11, torch.float64: 7}
 
-# The launch constants of `csrc/riccati.cu`: lanes a block, threads a lane
-# (n + 1), steps a staged chunk of inputs.
+# The launch constants of `csrc/riccati.cu`: lanes a block, steps a staged
+# chunk of inputs (a lane runs n + 1 threads).
 LANES_PER_BLOCK = 32
-THREADS_PER_LANE = 8
 STEPS_PER_CHUNK = 1
 
 SOURCE = nvcc_build.CSRC / "riccati.cu"
@@ -127,7 +131,13 @@ def riccati_backward_reference(J, e, ld, lq, u, prec, Rt, dt, reg=1e-6):
 # kernel build, checks, launch
 # ---------------------------------------------------------------------------
 
-def _smem_values(nq, n=7):
+def residual_widths(n):
+    """The residual widths nq of the kinds the kernel serves on a chain of
+    n joints: position + orientation, joint, point."""
+    return (6, n, 3)
+
+
+def _smem_values(n, nq):
     """Values a lane the kernel keeps in shared memory: two staged input
     chunks and the gains' chunk (each a lane's row, its length made odd),
     two carries (P in full, p), the pivot columns, and the chunk's
@@ -139,43 +149,54 @@ def _smem_values(nq, n=7):
     return 2 * tile_in + tile_out + 2 * (n * n + n) + n * (n + 1) + prec
 
 
-def launch_geometry(B, dtype, nq=6):
-    """The launch of the kernel of width (7, nq) at batch B
+def launch_geometry(B, dtype, n, nq):
+    """The launch of the kernel of width (n, nq) at batch B
     (`nvcc_build.launch_geometry`: blocks, threads, shared memory a block,
     lanes an SM). Needs no card."""
-    return nvcc_build.launch_geometry(B, LANES_PER_BLOCK, THREADS_PER_LANE,
-                                      _smem_values(nq), torch.finfo(dtype).bits // 8)
+    return nvcc_build.launch_geometry(B, LANES_PER_BLOCK, n + 1,
+                                      _smem_values(n, nq), torch.finfo(dtype).bits // 8)
 
 
-_ENTRIES = {f"riccati_backward_{n}x{nq}_{tag}":
-            [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            for n, nq in KERNEL_WIDTHS for tag in ("f32", "f64")}
-_ENTRIES["riccati_geometry"] = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+def _defines(n, nq):
+    return (f"RICCATI_N={n}", f"RICCATI_NQ={nq}")
 
 
-def build():
-    """Compile `csrc/riccati.cu` for sm_90a (once per source content) ->
-    (path of the shared library, ptxas report)."""
-    return nvcc_build.build(SOURCE)
+def _entries(n, nq):
+    entries = {f"riccati_backward_{n}x{nq}_{tag}":
+               [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+               for tag in ("f32", "f64")}
+    entries["riccati_geometry"] = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    return entries
 
 
-def kernel_geometry(B, dtype, nq=6):
-    """What the built kernel of width (7, nq) itself launches at batch B,
+def build(n, nq, defines=()):
+    """Compile `csrc/riccati.cu` at width (n, nq) for sm_90a (once per
+    source content, width and design `defines`) -> (path of the shared
+    library, ptxas report)."""
+    return nvcc_build.build(SOURCE, _defines(n, nq) + tuple(defines))
+
+
+def kernel_geometry(B, dtype, n, nq):
+    """What the built kernel of width (n, nq) itself launches at batch B,
     asked of the library on the card (`nvcc_build.kernel_geometry`);
     `launch_geometry` must agree on blocks, threads and shared memory."""
-    fn = nvcc_build.load(SOURCE, _ENTRIES).riccati_geometry
-    return nvcc_build.kernel_geometry(fn, 7, nq, torch.finfo(dtype).bits // 8, B)
+    fn = nvcc_build.load(SOURCE, _entries(n, nq), _defines(n, nq)).riccati_geometry
+    return nvcc_build.kernel_geometry(fn, n, nq, torch.finfo(dtype).bits // 8, B)
 
 
 def _check(J, e, ld, lq, u, prec):
     """Raise on anything the kernel does not take. Needs no card."""
     B, H, nq, n = J.shape
-    if (n, nq) not in KERNEL_WIDTHS:
-        built = ", ".join(f"(n={a}, nq={b})" for a, b in KERNEL_WIDTHS)
-        raise ValueError(
-            f"riccati kernel is built for {built}; got n={n}, nq={nq}")
     if J.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"riccati kernel takes float32/float64, got {J.dtype}")
+    if nq not in residual_widths(n):
+        raise ValueError(
+            f"riccati kernel takes the residual widths nq = 6, n or 3 (the "
+            f"posorn, joint and point kinds); got n={n}, nq={nq}")
+    if not 1 <= n <= MAX_N[J.dtype]:
+        raise ValueError(
+            f"riccati kernel takes chains of n <= {MAX_N[J.dtype]} joints in "
+            f"{J.dtype}; got n={n} (ROADMAP Queue 3 F3)")
     shapes = {"J": (J, (B, H, nq, n)), "e": (e, (B, H, nq)),
               "ld": (ld, (B, H, n)), "lq": (lq, (B, H, n)),
               "u": (u, (B, H - 1, n)), "prec": (prec, (H, nq, nq))}
@@ -202,8 +223,8 @@ def _params(dt, reg, Rt, dtype, dev):
 def riccati_backward(J, e, ld, lq, u, prec, Rt, dt, reg=1e-6):
     """Structured backward sweep -> (K [B, H-1, n, n], d [B, H-1, n]);
     arguments as `riccati_backward_reference`. CPU tensors run the twin;
-    CUDA tensors launch the kernel on the current stream (n = 7, nq = 6, 7
-    or 3, float32 or float64, any B). A horizon H < 2 raises."""
+    CUDA tensors launch the kernel on the current stream (n up to `MAX_N`,
+    nq = 6, n or 3, float32 or float64, any B). A horizon H < 2 raises."""
     global LAUNCHES
     if J.dim() != 4 or J.shape[1] < 2:
         raise ValueError(f"riccati_backward needs J [B, H, nq, n] with a "
@@ -224,7 +245,8 @@ def riccati_backward(J, e, ld, lq, u, prec, Rt, dt, reg=1e-6):
     params = _params(float(dt), float(reg), tuple(float(v) for v in Rt),
                      dtype, dev)
     tag = "f32" if dtype == torch.float32 else "f64"
-    fn = getattr(nvcc_build.load(SOURCE, _ENTRIES), f"riccati_backward_{n}x{nq}_{tag}")
+    lib = nvcc_build.load(SOURCE, _entries(n, nq), _defines(n, nq))
+    fn = getattr(lib, f"riccati_backward_{n}x{nq}_{tag}")
     with torch.cuda.device(dev):
         err = fn(J.data_ptr(), e.data_ptr(), ld.data_ptr(), lq.data_ptr(),
                  u.data_ptr(), prec.data_ptr(), params.data_ptr(),

@@ -7,7 +7,7 @@ PyTorch counterpart of the JAX package's
 steps of
     du = K (x - xo) + alpha d,   u = uo + du,
     q' = q + s^2 u_q,            t' = t + s^2        (s = u[m-1])
-eight threads a scenario lane (a warp a row of the gains), the state in
+n threads a scenario lane (a warp a row of the gains), the state in
 registers, the inputs of the next steps in flight through a ring in shared
 memory, and writes x', u and ||du||^2 per step (`launch_geometry` gives the
 blocks, threads and shared memory of a launch). The caller assembles the
@@ -18,7 +18,9 @@ The kernel reads the gains, the feed-forward terms and the reference
 trajectory where they lie: the JAX package's packing of them into one
 array per backward pass (`build_steps`, made for the TPU's DMA) is not
 carried over. The wrapper runs the twin for CPU tensors and the kernel for
-CUDA tensors; it never falls back from one to the other.
+CUDA tensors (any n = m = dof + 1 from 2 up to `MAX_N`, each width its own
+library, built at first use); it never falls back from one to the other,
+and a width the source cannot take raises before any build.
 """
 
 import ctypes
@@ -28,31 +30,32 @@ import torch
 from ilqr_planner_torch.ops.cuda_kernels import nvcc_build
 
 __all__ = ["rollout_time1", "rollout_time1_reference", "build", "LAUNCHES",
-           "KERNEL_N", "launch_geometry", "kernel_geometry"]
+           "MAX_N", "launch_geometry", "kernel_geometry"]
 
 # Kernel launches so far: one per CUDA call of `rollout_time1`.
 LAUNCHES = 0
-# The state width (= control width) the kernel is instantiated for: the
-# 7-DoF arm plus the time state.
-KERNEL_N = 8
+# The largest state width n = m (the chain's DoF plus the time state) the
+# source takes, by type: the largest whose block fits one H100 SM (n threads
+# a lane, the ring's shared memory) and whose every width up to it builds
+# without a register spill (`python3 tools/width_scan.py`, on the card).
+MAX_N = {torch.float32: 15, torch.float64: 10}
 
-# The launch constants of `csrc/rollout_time1.cu`: lanes a block, threads a
-# lane (one a row of the gains), step tiles in the shared-memory ring.
+# The launch constants of `csrc/rollout_time1.cu`: lanes a block, step tiles
+# in the shared-memory ring (a lane runs n threads, one a row of the gains).
 LANES_PER_BLOCK = 32
-THREADS_PER_LANE = KERNEL_N
 RING_STAGES = 6
 
 SOURCE = nvcc_build.CSRC / "rollout_time1.cu"
 
 
-def launch_geometry(B, dtype):
-    """The kernel's launch at batch B (`nvcc_build.launch_geometry`: blocks,
-    threads, shared memory a block, lanes an SM). Needs no card."""
-    n = KERNEL_N
+def launch_geometry(B, dtype, n):
+    """The kernel's launch at width n and batch B
+    (`nvcc_build.launch_geometry`: blocks, threads, shared memory a block,
+    lanes an SM). Needs no card."""
     # a step's tile (gains, d, xo, uo) in each ring stage; u, du of two steps
     values = RING_STAGES * (n * n + 3 * n) + 4 * n
-    return nvcc_build.launch_geometry(B, LANES_PER_BLOCK, THREADS_PER_LANE,
-                                      values, torch.finfo(dtype).bits // 8)
+    return nvcc_build.launch_geometry(B, LANES_PER_BLOCK, n, values,
+                                      torch.finfo(dtype).bits // 8)
 
 
 def rollout_time1_reference(alpha, Ks, ds, Xref, Uref, x0):
@@ -77,38 +80,46 @@ def rollout_time1_reference(alpha, Ks, ds, Xref, Uref, x0):
     return X, U, du2
 
 
-_ENTRIES = {f"rollout_time1_{tag}": [ctypes.c_void_p] * 5 + [alpha_type]
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            for tag, alpha_type in (("f32", ctypes.c_float),
-                                    ("f64", ctypes.c_double))}
-_ENTRIES["rollout_time1_geometry"] = (
-    [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)])
+def _defines(n):
+    return (f"ROLLOUT_N={n}",)
 
 
-def build():
-    """Compile `csrc/rollout_time1.cu` for sm_90a (once per source content)
-    -> (path of the shared library, ptxas report)."""
-    return nvcc_build.build(SOURCE)
+def _entries(n):
+    entries = {f"rollout_time1_n{n}_{tag}": [ctypes.c_void_p] * 5 + [alpha_type]
+               + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+               for tag, alpha_type in (("f32", ctypes.c_float),
+                                       ("f64", ctypes.c_double))}
+    entries["rollout_time1_geometry"] = (
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    return entries
 
 
-def kernel_geometry(B, dtype):
-    """What the built kernel itself launches at batch B, asked of the
-    library on the card (`nvcc_build.kernel_geometry`); `launch_geometry`
-    must agree on blocks, threads and shared memory."""
-    fn = nvcc_build.load(SOURCE, _ENTRIES).rollout_time1_geometry
-    return nvcc_build.kernel_geometry(fn, torch.finfo(dtype).bits // 8, B)
+def build(n, defines=()):
+    """Compile `csrc/rollout_time1.cu` at width n for sm_90a (once per
+    source content, width and design `defines`) -> (path of the shared
+    library, ptxas report)."""
+    return nvcc_build.build(SOURCE, _defines(n) + tuple(defines))
+
+
+def kernel_geometry(B, dtype, n):
+    """What the built kernel of width n itself launches at batch B, asked
+    of the library on the card (`nvcc_build.kernel_geometry`);
+    `launch_geometry` must agree on blocks, threads and shared memory."""
+    fn = nvcc_build.load(SOURCE, _entries(n), _defines(n)).rollout_time1_geometry
+    return nvcc_build.kernel_geometry(fn, n, torch.finfo(dtype).bits // 8, B)
 
 
 def _check(Ks, ds, Xref, Uref, x0):
     """Raise on anything the kernel does not take. Needs no card."""
     Hm1, m, n, B = Ks.shape
-    if n != KERNEL_N or m != KERNEL_N:
-        raise ValueError(f"rollout_time1 kernel is built for n = m = "
-                         f"{KERNEL_N}; got n={n}, m={m} (other widths: ROADMAP "
-                         f"Queue 2)")
     if Ks.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"rollout_time1 kernel takes float32/float64, got "
                         f"{Ks.dtype}")
+    if n != m or not 2 <= n <= MAX_N[Ks.dtype]:
+        raise ValueError(f"rollout_time1 kernel takes n = m from 2 to "
+                         f"{MAX_N[Ks.dtype]} in {Ks.dtype} (a chain of up to "
+                         f"{MAX_N[Ks.dtype] - 1} joints and the time state); "
+                         f"got n={n}, m={m} (ROADMAP Queue 3 F3)")
     shapes = {"Ks": (Ks, (Hm1, m, n, B)), "ds": (ds, (Hm1, m, B)),
               "Xref": (Xref, (Hm1 + 1, n, B)), "Uref": (Uref, (Hm1, m, B)),
               "x0": (x0, (n, B))}
@@ -130,7 +141,7 @@ def rollout_time1(alpha, Ks, ds, Xref, Uref, x0):
     """Closed-loop trial rollout -> (X [H, n, B], U [H-1, m, B],
     du2 [H-1, B]); arguments as `rollout_time1_reference`. CPU tensors run
     the twin; CUDA tensors launch the kernel on the current stream
-    (n = m = 8, float32 or float64). A horizon H < 2 raises."""
+    (n = m up to `MAX_N`, float32 or float64). A horizon H < 2 raises."""
     global LAUNCHES
     if Ks.dim() != 4 or Ks.shape[0] < 1:
         raise ValueError(f"rollout_time1 needs gains Ks [H-1, m, n, B] with a "
@@ -149,7 +160,8 @@ def rollout_time1(alpha, Ks, ds, Xref, Uref, x0):
     if B == 0:
         return X, U, du2
     tag = "f32" if Ks.dtype == torch.float32 else "f64"
-    fn = getattr(nvcc_build.load(SOURCE, _ENTRIES), f"rollout_time1_{tag}")
+    fn = getattr(nvcc_build.load(SOURCE, _entries(n), _defines(n)),
+                 f"rollout_time1_n{n}_{tag}")
     dev = Ks.device
     with torch.cuda.device(dev):
         err = fn(Ks.data_ptr(), ds.data_ptr(), Xref.data_ptr(), Uref.data_ptr(),

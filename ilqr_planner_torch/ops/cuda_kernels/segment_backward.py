@@ -3,14 +3,17 @@
 PyTorch counterpart of the JAX package's
 `ops/pallas_kernels/segment_backward.py` (the Pallas TPU kernel).
 The kernel (`csrc/segment_backward.cu`) runs all H-1 steps of the collapsed
-first-order LTI recursion in one launch, one thread per scenario lane, with
-the (P, p) cost-to-go carry in registers. `segment_backward_reference` is
-the same per-step math over [n, n, B] tensors with a Python loop over steps.
+first-order LTI recursion in one launch, one thread a lane; its launch is
+in `launch_geometry`.
+`segment_backward_reference` is the same per-step math over [n, n, B]
+tensors with a Python loop over steps.
 
-The kernel is built with nvcc at first use, from the source in this package,
-into `ilqr_planner_torch/build/`, and loaded with ctypes (`nvcc_build`).
-`segment_backward` runs the twin for CPU tensors and the kernel for CUDA
-tensors; it never falls back from one to the other.
+The kernel is built with nvcc at first use, one library a chain width n,
+from the source in this package, into `ilqr_planner_torch/build/`, and
+loaded with ctypes (`nvcc_build`). `segment_backward` runs the twin for CPU
+tensors and the kernel for CUDA tensors; it never falls back from one to the
+other, and a width the source cannot take (above `MAX_N`) raises before any
+build.
 """
 
 import ctypes
@@ -21,12 +24,19 @@ import torch
 from ilqr_planner_torch.ops.cuda_kernels import nvcc_build
 
 __all__ = ["segment_backward", "segment_backward_reference", "build",
-           "LAUNCHES", "KERNEL_N"]
+           "LAUNCHES", "MAX_N", "launch_geometry", "kernel_geometry"]
 
 # Kernel launches so far: one per CUDA call of `segment_backward`.
 LAUNCHES = 0
-# The state width the kernel is instantiated for (the 7-DoF arm).
-KERNEL_N = 7
+# The largest chain n the source takes, by type: the largest whose block
+# fits one H100 SM and whose every width up to it builds without a register
+# spill (`python3 tools/width_scan.py`, on the card).
+MAX_N = {torch.float32: 10, torch.float64: 7}
+
+# The launch constants of `csrc/segment_backward.cu`: lanes (threads) a
+# block, the steps whose rows are in flight.
+LANES_PER_BLOCK = 32
+STEPS_AHEAD = 1
 
 SOURCE = nvcc_build.CSRC / "segment_backward.cu"
 
@@ -101,27 +111,54 @@ def segment_backward_reference(P0, p0, L2, lx, U, gxx, kp_steps, dt, Rt,
 # kernel build, checks, launch
 # ---------------------------------------------------------------------------
 
-_ENTRIES = {name: [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int,
-                                          ctypes.c_void_p]
-            for name in ("segment_backward_f32", "segment_backward_f64")}
+def launch_geometry(B, dtype, n):
+    """The launch of the kernel of width n at batch B
+    (`nvcc_build.launch_geometry`: blocks, threads, shared memory a block,
+    lanes an SM): one thread a lane, a ring of the streamed rows (U, lx, L2
+    of STEPS_AHEAD + 1 steps) a lane in shared memory. Needs no card."""
+    return nvcc_build.launch_geometry(B, LANES_PER_BLOCK, 1,
+                                      (STEPS_AHEAD + 1) * 3 * n,
+                                      torch.finfo(dtype).bits // 8)
 
 
-def build():
-    """Compile `csrc/segment_backward.cu` for sm_90a (once per source
-    content) -> (path of the shared library, ptxas report)."""
-    return nvcc_build.build(SOURCE)
+def _defines(n):
+    return (f"SB_N={n}",)
+
+
+def _entries(n):
+    entries = {f"segment_backward_n{n}_{tag}":
+               [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+               for tag in ("f32", "f64")}
+    entries["segment_backward_geometry"] = (
+        [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    return entries
+
+
+def build(n, defines=()):
+    """Compile `csrc/segment_backward.cu` at width n for sm_90a (once per
+    source content, width and variant `defines`) -> (path of the shared
+    library, ptxas report)."""
+    return nvcc_build.build(SOURCE, _defines(n) + tuple(defines))
+
+
+def kernel_geometry(B, dtype, n):
+    """What the built kernel of width n itself launches at batch B, asked
+    of the library on the card (`nvcc_build.kernel_geometry`);
+    `launch_geometry` must agree on blocks, threads and shared memory."""
+    fn = nvcc_build.load(SOURCE, _entries(n), _defines(n)).segment_backward_geometry
+    return nvcc_build.kernel_geometry(fn, n, torch.finfo(dtype).bits // 8, B)
 
 
 def _check(P0, p0, L2, lx, U, gxx, kp_steps):
     """Raise on anything the kernel does not take. Needs no card."""
     n = P0.shape[0]
-    if n != KERNEL_N:
-        raise ValueError(
-            f"segment_backward kernel is built for n={KERNEL_N}; got n={n} "
-            f"(other widths: ROADMAP Queue 2 item 1)")
     if P0.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"segment_backward kernel takes float32/float64, "
                         f"got {P0.dtype}")
+    if not 1 <= n <= MAX_N[P0.dtype]:
+        raise ValueError(
+            f"segment_backward kernel takes chains of n <= {MAX_N[P0.dtype]} "
+            f"joints in {P0.dtype}; got n={n} (ROADMAP Queue 3 F3)")
     B = P0.shape[-1]
     Hm1 = U.shape[0]
     shapes = {"P0": (P0, (n, n, B)), "p0": (p0, (n, B)),
@@ -157,7 +194,8 @@ def _launch_consts(Hm1, kp_steps, dt, reg, Rt, dtype, dev):
 def segment_backward(P0, p0, L2, lx, U, gxx, kp_steps, dt, Rt, reg=1e-6):
     """Full backward sweep -> (Ks [H-1, n, n, B], ds [H-1, n, B]); arguments
     as `segment_backward_reference`. CPU tensors run the twin; CUDA tensors
-    launch the kernel on the current stream (n = 7, float32 or float64)."""
+    launch the kernel on the current stream (n up to `MAX_N`, float32 or
+    float64)."""
     global LAUNCHES
     if P0.device.type == "cpu":
         return segment_backward_reference(P0, p0, L2, lx, U, gxx, kp_steps,
@@ -173,8 +211,9 @@ def segment_backward(P0, p0, L2, lx, U, gxx, kp_steps, dt, Rt, reg=1e-6):
     slots, params = _launch_consts(Hm1, tuple(int(k) for k in kp_steps),
                                    float(dt), float(reg),
                                    tuple(float(v) for v in Rt), dtype, dev)
-    lib = nvcc_build.load(SOURCE, _ENTRIES)
-    fn = lib.segment_backward_f32 if dtype == torch.float32 else lib.segment_backward_f64
+    tag = "f32" if dtype == torch.float32 else "f64"
+    fn = getattr(nvcc_build.load(SOURCE, _entries(n), _defines(n)),
+                 f"segment_backward_n{n}_{tag}")
     with torch.cuda.device(dev):
         err = fn(P0.data_ptr(), p0.data_ptr(), L2.data_ptr(), lx.data_ptr(),
                  U.data_ptr(), gxx.data_ptr(), slots.data_ptr(),

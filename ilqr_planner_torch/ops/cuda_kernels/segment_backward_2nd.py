@@ -8,9 +8,10 @@ PyTorch counterpart of the JAX package's
 per-step body is the fleet solver's `_q_terms` + `_gains_value`. The kernels
 (`csrc/segment_backward_2nd.cu`) run all H-1 steps in one launch, one
 design for both kinds: several threads a scenario lane (a thread a column
-of the system: sixteen for 'second', nine for 'time1'), the next steps'
-rows in flight; `launch_geometry` gives the blocks, threads and shared
-memory of a launch.
+of the system: n + 2 for 'second', one of them spare, n + 1 for 'time1'),
+the next steps' rows in flight; `launch_geometry` gives the blocks, threads
+and shared memory of a launch. Each kind and width is its own library,
+built at first use, for any chain up to `MAX_DOF`.
 `segment_backward_2nd_reference` is the same
 per-step math over [n, n, B] tensors with a Python loop over steps:
 `q_terms` (the Q blocks of the kind's structured A and B), then
@@ -19,7 +20,8 @@ elimination order, and the collapsed value update).
 
 The kernel is built with nvcc at first use (`nvcc_build`). The wrappers run
 the twin for CPU tensors and the kernel for CUDA tensors; they never fall
-back from one to the other.
+back from one to the other, and a width the source cannot take raises
+before any build.
 """
 
 import ctypes
@@ -31,39 +33,55 @@ from ilqr_planner_torch.ops.cuda_kernels import nvcc_build
 
 __all__ = ["segment_backward_2nd", "segment_backward_time1",
            "segment_backward_2nd_reference", "q_terms", "gains_value",
-           "solve_aug", "build", "LAUNCHES", "KERNEL_WIDTHS",
-           "launch_geometry", "kernel_geometry"]
+           "solve_aug", "build", "LAUNCHES", "MAX_DOF", "widths",
+           "threads_per_lane", "launch_geometry", "kernel_geometry"]
 
 # Kernel launches so far, by kind: one per CUDA call of the kind's wrapper.
 LAUNCHES = {"second": 0, "time1": 0}
-# (n, m) each kind is instantiated for: the 7-DoF arm.
-KERNEL_WIDTHS = {"second": (14, 7), "time1": (8, 8)}
+# The largest chain (DoF) each kind's source takes, by type: the largest
+# whose block fits one H100 SM (the threads, the shared memory) and whose
+# every width up to it builds without a register spill
+# (`python3 tools/width_scan.py`, on the card).
+MAX_DOF = {"second": {torch.float32: 11, torch.float64: 7},
+           "time1": {torch.float32: 25, torch.float64: 17}}
 
 # The launch constants of `csrc/segment_backward_2nd.cu`, by kind: lanes a
-# block, threads a lane (a thread a column of [Qux | Qu]; 'second' has one
-# spare), steps whose streamed rows are in flight.
+# block, steps whose streamed rows are in flight.
 LANES_PER_BLOCK = {"second": 32, "time1": 16}
-THREADS_PER_LANE = {"second": 16, "time1": 9}
 STEPS_AHEAD = {"second": 2, "time1": 2}
 
 SOURCE = nvcc_build.CSRC / "segment_backward_2nd.cu"
 
 
-def _smem_values(kind):
+def widths(kind, dof):
+    """(n, m) of the kind on a chain of `dof` joints: 'second' (2 dof, dof),
+    'time1' (dof + 1, dof + 1)."""
+    return (2 * dof, dof) if kind == "second" else (dof + 1, dof + 1)
+
+
+def threads_per_lane(kind, dof):
+    """A thread a column of [Qux | Qu] (n + 1); 'second' has one spare."""
+    n = widths(kind, dof)[0]
+    return n + 2 if kind == "second" else n + 1
+
+
+def _smem_values(kind, dof):
     """Values a lane the kind's kernel keeps in shared memory: two carries
     (P in full, p), K | d, the pivot columns with 1 / pivot, the ring of
     streamed rows (U, lx, L2), one keypoint Hessian (upper triangle)."""
-    n, m = KERNEL_WIDTHS[kind]
+    n, m = widths(kind, dof)
     return (2 * (n * n + n) + m * (n + 1) + m * (m + 1)
             + (STEPS_AHEAD[kind] + 1) * (2 * n + m) + n * (n + 1) // 2)
 
 
-def launch_geometry(kind, B, dtype):
-    """The launch of the kind's kernel at batch B
-    (`nvcc_build.launch_geometry`: blocks, threads, shared memory a block,
+def launch_geometry(kind, B, dtype, dof):
+    """The launch of the kind's kernel on a chain of `dof` joints at batch
+    B (`nvcc_build.launch_geometry`: blocks, threads, shared memory a block,
     lanes an SM). Needs no card."""
-    return nvcc_build.launch_geometry(B, LANES_PER_BLOCK[kind], THREADS_PER_LANE[kind],
-                                      _smem_values(kind), torch.finfo(dtype).bits // 8)
+    return nvcc_build.launch_geometry(B, LANES_PER_BLOCK[kind],
+                                      threads_per_lane(kind, dof),
+                                      _smem_values(kind, dof),
+                                      torch.finfo(dtype).bits // 8)
 
 
 # ---------------------------------------------------------------------------
@@ -193,39 +211,66 @@ def segment_backward_2nd_reference(kind, P0, p0, L2, lx, U, gxx, kp_steps, dt,
 # kernel build, checks, launch
 # ---------------------------------------------------------------------------
 
-_ENTRIES = {f"segment_backward_{kind}_{tag}":
-            [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            for kind in KERNEL_WIDTHS for tag in ("f32", "f64")}
-_ENTRIES["segment_backward_2nd_geometry"] = (
-    [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+def _width_tag(kind, dof):
+    """The kind's width as its library names it: m for 'second', n for
+    'time1'."""
+    return f"m{dof}" if kind == "second" else f"n{dof + 1}"
 
 
-def build():
-    """Compile `csrc/segment_backward_2nd.cu` for sm_90a (once per source
-    content) -> (path of the shared library, ptxas report)."""
-    return nvcc_build.build(SOURCE)
+def _defines(kind, dof):
+    return ((f"SECOND_M={dof}",) if kind == "second"
+            else (f"TIME1_N={dof + 1}",))
 
 
-def kernel_geometry(kind, B, dtype):
-    """What the built kernel of the kind itself launches at batch B, asked
-    of the library on the card (`nvcc_build.kernel_geometry`);
-    `launch_geometry` must agree on blocks, threads and shared memory."""
-    fn = nvcc_build.load(SOURCE, _ENTRIES).segment_backward_2nd_geometry
-    return nvcc_build.kernel_geometry(fn, list(KERNEL_WIDTHS).index(kind),
+def _entries(kind, dof):
+    entries = {f"segment_backward_{kind}_{_width_tag(kind, dof)}_{tag}":
+               [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+               for tag in ("f32", "f64")}
+    entries["segment_backward_2nd_geometry"] = (
+        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+    return entries
+
+
+def build(kind, dof, defines=()):
+    """Compile the kind's kernel of `csrc/segment_backward_2nd.cu` for a
+    chain of `dof` joints for sm_90a (once per source content, kind, width
+    and design `defines`) -> (path of the shared library, ptxas report)."""
+    return nvcc_build.build(SOURCE, _defines(kind, dof) + tuple(defines))
+
+
+def kernel_geometry(kind, B, dtype, dof):
+    """What the built kernel of the kind on a chain of `dof` joints itself
+    launches at batch B, asked of the library on the card
+    (`nvcc_build.kernel_geometry`); `launch_geometry` must agree on blocks,
+    threads and shared memory."""
+    lib = nvcc_build.load(SOURCE, _entries(kind, dof), _defines(kind, dof))
+    width = dof if kind == "second" else dof + 1
+    return nvcc_build.kernel_geometry(lib.segment_backward_2nd_geometry,
+                                      ("second", "time1").index(kind), width,
                                       torch.finfo(dtype).bits // 8, B)
+
+
+def _dof_of(kind, n, m):
+    """The chain's DoF behind the widths (n, m), or None where they are not
+    the kind's."""
+    dof = m if kind == "second" else m - 1
+    return dof if dof >= 1 and (n, m) == widths(kind, dof) else None
 
 
 def _check(kind, P0, p0, L2, lx, U, gxx, kp_steps):
     """Raise on anything the kernel does not take. Needs no card."""
     n, m = P0.shape[0], U.shape[1]
-    if (n, m) != KERNEL_WIDTHS[kind]:
-        raise ValueError(
-            f"segment_backward_2nd kernel '{kind}' is built for (n, m) = "
-            f"{KERNEL_WIDTHS[kind]}; got ({n}, {m}) (other widths: ROADMAP "
-            f"Queue 2)")
     if P0.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"segment_backward_2nd kernel takes float32/float64, "
                         f"got {P0.dtype}")
+    dof = _dof_of(kind, n, m)
+    top = MAX_DOF[kind][P0.dtype]
+    if dof is None or dof > top:
+        shape = "(2 dof, dof)" if kind == "second" else "(dof + 1, dof + 1)"
+        raise ValueError(
+            f"segment_backward_2nd kernel '{kind}' takes (n, m) = {shape} "
+            f"for a chain of dof <= {top} joints in {P0.dtype}; got "
+            f"({n}, {m}) (ROADMAP Queue 3 F3)")
     B = P0.shape[-1]
     Hm1 = U.shape[0]
     shapes = {"P0": (P0, (n, n, B)), "p0": (p0, (n, B)),
@@ -279,9 +324,10 @@ def _sweep(kind, P0, p0, L2, lx, U, gxx, kp_steps, dt, Rt, reg):
                                    None if dt is None else float(dt),
                                    float(reg), tuple(float(v) for v in Rt),
                                    dtype, dev)
+    dof = _dof_of(kind, n, m)
     tag = "f32" if dtype == torch.float32 else "f64"
-    fn = getattr(nvcc_build.load(SOURCE, _ENTRIES),
-                 f"segment_backward_{kind}_{tag}")
+    lib = nvcc_build.load(SOURCE, _entries(kind, dof), _defines(kind, dof))
+    fn = getattr(lib, f"segment_backward_{kind}_{_width_tag(kind, dof)}_{tag}")
     with torch.cuda.device(dev):
         err = fn(P0.data_ptr(), p0.data_ptr(), L2.data_ptr(), lx.data_ptr(),
                  U.data_ptr(), gxx.data_ptr(), slots.data_ptr(),
@@ -297,12 +343,13 @@ def _sweep(kind, P0, p0, L2, lx, U, gxx, kp_steps, dt, Rt, reg):
 def segment_backward_2nd(P0, p0, L2, lx, U, gxx, kp_steps, dt, Rt, reg=1e-6):
     """Double-integrator sweep -> (Ks [H-1, m, n, B], ds [H-1, m, B]);
     arguments as `segment_backward_2nd_reference`. CPU tensors run the twin;
-    CUDA tensors launch the kernel (n = 14, m = 7, float32 or float64)."""
+    CUDA tensors launch the kernel (n = 2m, m up to `MAX_DOF`, float32 or
+    float64)."""
     return _sweep("second", P0, p0, L2, lx, U, gxx, kp_steps, dt, Rt, reg)
 
 
 def segment_backward_time1(P0, p0, L2, lx, U, gxx, kp_steps, Rt, reg=1e-6):
     """Time-optimal first-order sweep (n = m = dof + 1, the step durations
     s^2 read from U); CPU tensors run the twin, CUDA tensors launch the
-    kernel (n = m = 8, float32 or float64)."""
+    kernel (n = m up to `MAX_DOF` + 1, float32 or float64)."""
     return _sweep("time1", P0, p0, L2, lx, U, gxx, kp_steps, None, Rt, reg)

@@ -6,10 +6,11 @@
     and has a row in PERF.md's kernel table.
 (b) No module of the port, nor `chip_smoke.py`, imports JAX or the JAX
     package (an `ast` walk, so comments and strings do not count).
-(c) The launch-geometry helpers of the kernels that run several threads a
-    lane (riccati at each built width) cover every lane of a batch and stay
-    within the shared memory a block may take on the H100, and their
-    constants and widths are the ones the CUDA sources define.
+(c) The launch-geometry helpers of the kernels (each at the 7-DoF arm's
+    widths and at 6 and 3 DoF; riccati at each residual width) cover every
+    lane of a batch and stay within the shared memory a block may take on
+    the H100; every width up to a wrapper's stated limit fits a block; and
+    the wrappers' constants are the ones the CUDA sources define.
 """
 
 import ast
@@ -21,6 +22,7 @@ import torch
 
 from ilqr_planner_torch.ops.cuda_kernels import (nvcc_build, riccati,
                                                  rollout_time1,
+                                                 segment_backward,
                                                  segment_backward_2nd)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -135,13 +137,18 @@ def test_port_imports_no_jax(rel):
     assert not banned, (rel, banned)
 
 
-BATCHES = (1, 31, 45, 2048, 4096, 4133)
+BATCHES = (1, 31, 45, 2048, 4096, 4133, 36864)
+DOFS = (7, 6, 3)
 GEOMETRIES = {
-    "second": lambda B, dt: segment_backward_2nd.launch_geometry("second", B, dt),
-    "time1": lambda B, dt: segment_backward_2nd.launch_geometry("time1", B, dt),
-    "rollout_time1": rollout_time1.launch_geometry,
-    **{f"riccati_{n}x{nq}": (lambda B, dt, nq=nq: riccati.launch_geometry(B, dt, nq))
-       for n, nq in riccati.KERNEL_WIDTHS},
+    **{f"segment_backward_n{d}": (lambda B, dt, d=d: segment_backward.launch_geometry(
+        B, dt, d)) for d in DOFS},
+    **{f"{kind}_dof{d}": (lambda B, dt, kind=kind, d=d:
+                          segment_backward_2nd.launch_geometry(kind, B, dt, d))
+       for kind in ("second", "time1") for d in DOFS},
+    **{f"rollout_time1_n{d + 1}": (lambda B, dt, d=d: rollout_time1.launch_geometry(
+        B, dt, d + 1)) for d in DOFS},
+    **{f"riccati_{d}x{nq}": (lambda B, dt, d=d, nq=nq: riccati.launch_geometry(
+        B, dt, d, nq)) for d in DOFS for nq in sorted(set(riccati.residual_widths(d)))},
 }
 
 
@@ -165,15 +172,56 @@ def test_launch_geometry(kernel, B, dtype):
     assert g["smem_bytes"] % (g["lanes_per_block"] * itemsize) == 0
 
 
+# each wrapper's stated limit: (width in the wrapper's terms, its geometry)
+LIMITS = {
+    "segment_backward": (segment_backward.MAX_N, 1,
+                         lambda w, dt: segment_backward.launch_geometry(64, dt, w)),
+    "second": (segment_backward_2nd.MAX_DOF["second"], 1,
+               lambda w, dt: segment_backward_2nd.launch_geometry("second", 64, dt, w)),
+    "time1": (segment_backward_2nd.MAX_DOF["time1"], 1,
+              lambda w, dt: segment_backward_2nd.launch_geometry("time1", 64, dt, w)),
+    "rollout_time1": (rollout_time1.MAX_N, 2,
+                      lambda w, dt: rollout_time1.launch_geometry(64, dt, w)),
+    **{f"riccati_nq{label}": (riccati.MAX_N, 1, lambda w, dt, i=i: riccati.launch_geometry(
+        64, dt, w, riccati.residual_widths(w)[i]))
+       for i, label in enumerate(("6", "n", "3"))},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("kernel", sorted(LIMITS))
+def test_every_width_up_to_the_limit_fits(kernel, dtype):
+    """Every chain from the narrowest up to the wrapper's limit launches a
+    block that fits one H100 SM: at most 1024 threads and 227 KB of shared
+    memory (the limits themselves also carry the card's no-spill finding,
+    `tools/width_scan.py`, which needs nvcc); the 7-DoF arm is within."""
+    limits, first, geometry = LIMITS[kernel]
+    top = limits[dtype]
+    assert top >= (8 if kernel == "rollout_time1" else 7)
+    for w in range(first, top + 1):
+        g = geometry(w, dtype)
+        assert g["threads"] <= 1024 and g["smem_bytes"] <= nvcc_build.SMEM_PER_BLOCK_MAX
+
+
 def test_geometry_matches_the_cuda_sources():
-    """The wrappers' launch constants and built widths are the ones the CUDA
-    sources define."""
+    """The wrappers' launch constants are the ones the CUDA sources define,
+    and each source builds one width a library, named after it."""
+    first = (CSRC / "segment_backward.cu").read_text()
+    sb = segment_backward
+    assert re.search(r"#define SB_LANES (\d+)", first).group(1) == str(
+        sb.LANES_PER_BLOCK)
+    assert re.search(r"#define SB_AHEAD (\d+)", first).group(1) == str(sb.STEPS_AHEAD)
+    # one thread a lane: a block of kLanes threads
+    assert "kernel<<<(B + kLanes - 1) / kLanes, kLanes," in first
+    assert "SB_ENTRY_OF(SB_N, float, f32)" in first and "if (n != SB_N) return 1;" in first
     sweep = (CSRC / "segment_backward_2nd.cu").read_text()
     sb2 = segment_backward_2nd
     assert re.search(r"constexpr int kLanes = (\d+);", sweep).group(1) == str(
         sb2.LANES_PER_BLOCK["second"])
-    assert re.search(r"constexpr int kGroup = (\d+);", sweep).group(1) == str(
-        sb2.THREADS_PER_LANE["second"])
+    # 'second': a thread a column of [Qux | Qu] and a spare, n + 2
+    assert re.search(r"kGroup = N \+ 2", sweep)
+    assert all(sb2.threads_per_lane("second", d) == 2 * d + 2 for d in DOFS)
     assert re.search(r"#define SECOND_AHEAD (\d+)", sweep).group(1) == str(
         sb2.STEPS_AHEAD["second"])
     assert re.search(r"#define TIME1_LANES (\d+)", sweep).group(1) == str(
@@ -182,21 +230,22 @@ def test_geometry_matches_the_cuda_sources():
         sb2.STEPS_AHEAD["time1"])
     # 'time1': a thread a column of [Qux | Qu], n + 1
     assert re.search(r"kGroup = N_ \+ 1", sweep)
-    assert sb2.THREADS_PER_LANE["time1"] == sb2.KERNEL_WIDTHS["time1"][0] + 1
+    assert all(sb2.threads_per_lane("time1", d) == d + 2 for d in DOFS)
+    assert "segment_backward_2nd_geometry(int kind, int width" in sweep
     ric = (CSRC / "riccati.cu").read_text()
     assert re.search(r"#define RICCATI_LANES (\d+)", ric).group(1) == str(
         riccati.LANES_PER_BLOCK)
     assert re.search(r"#define RICCATI_STEPS (\d+)", ric).group(1) == str(
         riccati.STEPS_PER_CHUNK)
     assert re.search(r"kThreads = \(N \+ 1\) \* kLanes", ric)
-    assert all(riccati.THREADS_PER_LANE == n + 1 for n, _ in riccati.KERNEL_WIDTHS)
-    built = re.findall(r"RICCATI_ENTRY\((\d+), (\d+), (float|double), f(?:32|64)\)", ric)
-    assert sorted(built) == sorted((str(n), str(nq), t) for n, nq in riccati.KERNEL_WIDTHS
-                                   for t in ("float", "double"))
-    geometry = set(re.findall(r"if \(n == (\d+) && nq == (\d+)\)", ric))
-    assert geometry == {(str(n), str(nq)) for n, nq in riccati.KERNEL_WIDTHS}
+    assert riccati.launch_geometry(32, torch.float32, 6, 6)["threads"] == 7 * 32
+    for t, tag in (("float", "f32"), ("double", "f64")):
+        assert f"RICCATI_ENTRY_OF(RICCATI_N, RICCATI_NQ, {t}, {tag})" in ric
+    assert "if (n != RICCATI_N || nq != RICCATI_NQ) return 1;" in ric
     roll = (CSRC / "rollout_time1.cu").read_text()
     assert re.search(r"#define ROLLOUT_LANES (\d+)", roll).group(1) == str(
         rollout_time1.LANES_PER_BLOCK)
     assert re.search(r"#define ROLLOUT_STAGES (\d+)", roll).group(1) == str(
         rollout_time1.RING_STAGES)
+    assert "rollout_kernel<N, T><<<blocks, N * kLanes" in roll
+    assert "if (n != ROLLOUT_N) return 1;" in roll

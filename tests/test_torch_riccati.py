@@ -40,20 +40,20 @@ PREC_DIAG = {6: [1, 1, 1, .1, .1, .1], 7: [1] * 7, 3: [1, 1, 1]}
 
 
 def _random_inputs(B, H, seed=0, dense_prec=False, weight=1.0, limit_frac=0.2,
-                   nq=NQ):
+                   nq=NQ, n=N):
     """Kernel inputs as numpy arrays: Jacobians and residuals at every step,
     a live limit penalty on a share `limit_frac` of the entries, precisions
     (scaled by `weight`) at two steps (or at every step)."""
     rng = np.random.default_rng(seed)
-    J = rng.normal(size=(B, H, nq, N)) * 0.3
+    J = rng.normal(size=(B, H, nq, n)) * 0.3
     e = rng.normal(size=(B, H, nq)) * 0.05
-    ld = (rng.uniform(size=(B, H, N)) < limit_frac).astype(float)
-    lq = ld * rng.normal(size=(B, H, N)) * 0.1
-    u = rng.normal(size=(B, H - 1, N)) * 0.1
+    ld = (rng.uniform(size=(B, H, n)) < limit_frac).astype(float)
+    lq = ld * rng.normal(size=(B, H, n)) * 0.1
+    u = rng.normal(size=(B, H - 1, n)) * 0.1
     prec = np.zeros((H, nq, nq))
     steps = range(H) if dense_prec else (H // 2, H - 1)
     for k in steps:
-        prec[k] = weight * np.diag(PREC_DIAG[nq])
+        prec[k] = weight * np.diag(PREC_DIAG.get(nq, [1.0] * nq))
     return J, e, ld, lq, u, prec
 
 
@@ -208,11 +208,20 @@ def _meta(n=N, nq=NQ, B=8, H=5, dtype=torch.float32):
 
 
 def test_wrapper_checks_without_a_card():
-    built = r"built for \(n=7, nq=6\), \(n=7, nq=7\), \(n=7, nq=3\)"
-    with pytest.raises(ValueError, match=built):
-        ric.riccati_backward(*_meta(n=8), RT + [1e-5], DT)
-    with pytest.raises(ValueError, match=built):
+    """Any chain up to the source's limit, at the kinds' residual widths,
+    passes the width checks (and then meets the device check); another
+    residual width, or a chain above the limit, raises naming it, before
+    any build."""
+    for n, nq in ((7, 6), (7, 7), (7, 3), (6, 6), (6, 3), (3, 3), (8, 8), (1, 6)):
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            ric.riccati_backward(*_meta(n=n, nq=nq), [1e-5] * n, DT)
+    with pytest.raises(ValueError, match="nq = 6, n or 3"):
         ric.riccati_backward(*_meta(nq=4), RT, DT)
+    for dtype in (torch.float32, torch.float64):
+        top = ric.MAX_N[dtype]
+        with pytest.raises(ValueError, match=rf"n <= {top} joints.*Queue 3 F3"):
+            ric.riccati_backward(*_meta(n=top + 1, dtype=dtype), [1e-5] * (top + 1),
+                                 DT)
     with pytest.raises(TypeError, match="float32/float64"):
         ric.riccati_backward(*_meta(dtype=torch.float16), RT, DT)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
@@ -222,13 +231,27 @@ def test_wrapper_checks_without_a_card():
         ric.riccati_backward(torch.zeros(J.shape), *rest, RT, DT)
 
 
+def _rel(got, want):
+    """Largest error relative to the largest output."""
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+# the arm's and narrower chains' widths, then one chain above the arm and
+# each type's limit at every residual width (posorn, joint, point)
+CARD_CASES = [(7, 6), (7, 7), (7, 3), (6, 6), (6, 3), (3, 3)] + [
+    (n, nq) for n in sorted({8, *ric.MAX_N.values()}) if n > N
+    for nq in ric.residual_widths(n)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq", [6, 7, 3])
-def test_kernel_matches_twin_on_card(nq):
+@pytest.mark.parametrize("n,nq", CARD_CASES)
+def test_kernel_matches_twin_on_card(n, nq):
     """float64: K and d within 1e-9 relative of the twin (the correctness
     gate), at a batch that leaves the last block ragged, with the precision
     at two steps and at every step, and on a horizon that is no multiple of
-    the staged chunk; float32: finite. At nq = 6 the limit penalty is live
+    the staged chunk; float32: error against the float64 twin on the same
+    (rounded) inputs within 10x the float32 twin's own, or 1e-6; each type
+    up to its `MAX_N`. At nq = 6 the limit penalty is live
     on 20% of the entries and the every-step precisions have unit weight;
     at the other widths and on the short horizon the inputs are scaled like
     a solve's: limits live on 0.5% of the entries, every-step weight 1e-4.
@@ -238,22 +261,29 @@ def test_kernel_matches_twin_on_card(nq):
     H = 20 on the CPU: `tools/riccati_rounding.py`.)"""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    limit_frac, dense_weight = (0.2, 1.0) if nq == NQ else (0.005, 1e-4)
-    cases = [_random_inputs(300, 20, seed=6, dense_prec=dense_prec, nq=nq,
+    limit_frac, dense_weight = ((0.2, 1.0) if (n, nq) == (N, NQ)
+                                else (0.005, 1e-4))
+    Rt = [1e-5] * n
+    cases = [_random_inputs(300, 20, seed=6, dense_prec=dense_prec, nq=nq, n=n,
                             limit_frac=limit_frac,
                             weight=dense_weight if dense_prec else 1.0)
              for dense_prec in (False, True)]
-    cases.append(_random_inputs(45, 13, seed=9, nq=nq, limit_frac=0.005))
+    cases.append(_random_inputs(45, 13, seed=9, nq=nq, n=n, limit_frac=0.005))
     for args in cases:
         for dtype in (torch.float64, torch.float32):
+            if n > ric.MAX_N[dtype]:
+                continue
             cuda = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in args]
             before = ric.LAUNCHES
-            out = ric.riccati_backward(*cuda, RT, DT)
+            out = ric.riccati_backward(*cuda, Rt, DT)
             torch.cuda.synchronize()
             assert ric.LAUNCHES == before + 1
-            ref = ric.riccati_backward_reference(*cuda, RT, DT)
-            for got, want in zip(out, ref):
+            ref = ric.riccati_backward_reference(*cuda, Rt, DT)
+            exact = ric.riccati_backward_reference(*(a.double() for a in cuda),
+                                                   Rt, DT)
+            for got, twin, want in zip(out, ref, exact):
                 assert bool(torch.isfinite(got).all())
                 if dtype == torch.float64:
-                    rel = float((got - want).abs().max() / want.abs().max())
-                    assert rel <= 1e-9, rel
+                    assert _rel(got, twin) <= 1e-9
+                else:
+                    assert _rel(got, want) <= max(10 * _rel(twin, want), 1e-6)

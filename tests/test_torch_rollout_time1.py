@@ -28,18 +28,19 @@ T2 = ([0.254121212377707, -0.07575049935289518, 0.13170744424127526],
 H, B, ALPHA = 12, 128, 0.5
 
 
-def _inputs(seed=9, Bl=B):
-    """Random gains and a reference trajectory around q0, step controls s
-    kept away from zero: (Ks, ds, Xref, Uref, x0) as numpy arrays."""
+def _inputs(seed=9, Bl=B, n=8):
+    """Random gains and a reference trajectory around q0 (its first n - 1
+    joints and the time state), step controls s kept away from zero:
+    (Ks, ds, Xref, Uref, x0) as numpy arrays."""
     rng = np.random.default_rng(seed)
-    x0 = np.concatenate([Q0[None] + 0.05 * rng.normal(size=(Bl, 7)),
+    x0 = np.concatenate([np.resize(Q0, n - 1)[None] + 0.05 * rng.normal(size=(Bl, n - 1)),
                          np.zeros((Bl, 1))], axis=-1)
-    steps = np.concatenate([x0[None], 0.02 * rng.normal(size=(H - 1, Bl, 8))])
+    steps = np.concatenate([x0[None], 0.02 * rng.normal(size=(H - 1, Bl, n))])
     Xref = np.ascontiguousarray(np.cumsum(steps, axis=0).transpose(0, 2, 1))
-    Uref = 0.05 * rng.normal(size=(H - 1, 8, Bl))
+    Uref = 0.05 * rng.normal(size=(H - 1, n, Bl))
     Uref[:, -1] = 0.1 + 0.05 * np.abs(Uref[:, -1])
-    Ks = 0.1 * rng.normal(size=(H - 1, 8, 8, Bl))
-    ds = 0.05 * rng.normal(size=(H - 1, 8, Bl))
+    Ks = 0.1 * rng.normal(size=(H - 1, n, n, Bl))
+    ds = 0.05 * rng.normal(size=(H - 1, n, Bl))
     return Ks, ds, Xref, Uref, x0.T.copy()
 
 
@@ -127,10 +128,18 @@ def _meta(n, m, Bl=8, Hs=5, dtype=torch.float32):
 
 
 def test_wrapper_checks_without_a_card():
-    with pytest.raises(ValueError, match="n = m = 8"):
-        rt1.rollout_time1(1.0, *_meta(7, 7))
-    with pytest.raises(ValueError, match="must be a CUDA tensor"):
-        rt1.rollout_time1(1.0, *_meta(8, 8))
+    """Any chain up to the source's limit passes the width check (and then
+    meets the device check); n != m, or a width above the limit, raises
+    naming it, before any build."""
+    for n in (8, 7, 4, 2):
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            rt1.rollout_time1(1.0, *_meta(n, n))
+    with pytest.raises(ValueError, match="n = m from 2"):
+        rt1.rollout_time1(1.0, *_meta(8, 7))
+    for dtype in (torch.float32, torch.float64):
+        top = rt1.MAX_N[dtype]
+        with pytest.raises(ValueError, match=rf"to {top} in .*Queue 3 F3"):
+            rt1.rollout_time1(1.0, *_meta(top + 1, top + 1, dtype=dtype))
     with pytest.raises(TypeError, match="float32/float64"):
         rt1.rollout_time1(1.0, *_meta(8, 8, dtype=torch.float16))
     Ks, *rest = _meta(8, 8)
@@ -138,22 +147,39 @@ def test_wrapper_checks_without_a_card():
         rt1.rollout_time1(1.0, torch.zeros(Ks.shape), *rest)
 
 
+def _rel(got, want):
+    """Largest error relative to the largest output."""
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+# n = dof + 1: the 7-DoF arm, two narrower chains, one chain above the arm,
+# and each type's limit
+CARD_WIDTHS = sorted({8, 7, 4, 9, *rt1.MAX_N.values()})
+
+
 @pytest.mark.cuda
-def test_kernel_matches_twin_on_card():
+@pytest.mark.parametrize("n", CARD_WIDTHS)
+def test_kernel_matches_twin_on_card(n):
     """float64: X, U and ||du||^2 within 1e-9 relative of the twin (the
-    correctness gate); float32: finite."""
+    correctness gate); float32: error against the float64 twin on the same
+    (rounded) inputs within 10x the float32 twin's own, or 1e-6; each type
+    up to its `MAX_N`."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    args = _inputs(seed=3, Bl=300)
+    args = _inputs(seed=3, Bl=300, n=n)
     for dtype in (torch.float64, torch.float32):
+        if n > rt1.MAX_N[dtype]:
+            continue
         cuda = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in args]
         before = rt1.LAUNCHES
         out = rt1.rollout_time1(0.25, *cuda)
         torch.cuda.synchronize()
         assert rt1.LAUNCHES == before + 1
         ref = rt1.rollout_time1_reference(0.25, *cuda)
-        for got, want in zip(out, ref):
+        exact = rt1.rollout_time1_reference(0.25, *(a.double() for a in cuda))
+        for got, twin, want in zip(out, ref, exact):
             assert bool(torch.isfinite(got).all())
             if dtype == torch.float64:
-                rel = float((got - want).abs().max() / want.abs().max())
-                assert rel <= 1e-9, rel
+                assert _rel(got, twin) <= 1e-9
+            else:
+                assert _rel(got, want) <= max(10 * _rel(twin, want), 1e-6)

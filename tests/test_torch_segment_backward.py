@@ -132,8 +132,17 @@ def _meta(n, B=8, H=5, n_kp=1, dtype=torch.float32):
 
 
 def test_wrapper_rejects_other_widths_without_a_card():
-    with pytest.raises(ValueError, match="n=7"):
-        sb.segment_backward(*_meta(6), (2,), DT, [1e-5] * 6)
+    """Any chain up to the source's limit passes the width check (and then
+    meets the device check); a chain above it raises naming the limit,
+    before any build."""
+    for n in (7, 6, 3, 1):
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            sb.segment_backward(*_meta(n), (2,), DT, [1e-5] * n)
+    for dtype in (torch.float32, torch.float64):
+        top = sb.MAX_N[dtype]
+        with pytest.raises(ValueError, match=rf"n <= {top} joints.*Queue 3 F3"):
+            sb.segment_backward(*_meta(top + 1, dtype=dtype), (2,), DT,
+                                [1e-5] * (top + 1))
 
 
 def test_wrapper_rejects_non_cuda_and_bad_shapes():
@@ -143,23 +152,43 @@ def test_wrapper_rejects_non_cuda_and_bad_shapes():
         sb.segment_backward(*_meta(7, dtype=torch.float16), (2,), DT, RT)
 
 
+def _rel(got, want):
+    """Largest error relative to the largest output."""
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+# the 7-DoF arm, two narrower chains, one chain above the arm, and each
+# type's limit
+CARD_WIDTHS = sorted({7, 6, 3, 8, *sb.MAX_N.values()})
+
+
 @pytest.mark.cuda
-def test_kernel_matches_twin_on_card():
+@pytest.mark.parametrize("n", CARD_WIDTHS)
+def test_kernel_matches_twin_on_card(n):
     """float64: relative error <= 1e-9 (the correctness gate); float32:
-    finite, same shapes (its error is reported by chip_smoke.py)."""
+    error against the float64 twin on the same (rounded) inputs within 10x
+    the float32 twin's own, or 1e-6; each type up to its `MAX_N`; a ragged
+    last block, keypoints at the first and the last step."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    kp = (2, 5)
-    args = _sweep_inputs(7, 300, 9, kp, seed=2)
+    kp = (0, 7)
+    Rt = [1e-5] * n
+    args = _sweep_inputs(n, 300, 9, kp, seed=2)
     for dtype in (torch.float64, torch.float32):
+        if n > sb.MAX_N[dtype]:
+            continue
         cuda = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in args]
         before = sb.LAUNCHES
-        K, d = sb.segment_backward(*cuda, kp, DT, RT)
+        K, d = sb.segment_backward(*cuda, kp, DT, Rt)
         torch.cuda.synchronize()
         assert sb.LAUNCHES == before + 1
-        K_ref, d_ref = sb.segment_backward_reference(*cuda, kp, DT, RT)
+        assert bool(torch.isfinite(K).all()) and bool(torch.isfinite(d).all())
+        K_ref, d_ref = sb.segment_backward_reference(*cuda, kp, DT, Rt)
         if dtype == torch.float64:
             for got, ref in ((K, K_ref), (d, d_ref)):
-                rel = float((got - ref).abs().max() / ref.abs().max())
-                assert rel <= 1e-9, rel
-        assert bool(torch.isfinite(K).all()) and bool(torch.isfinite(d).all())
+                assert _rel(got, ref) <= 1e-9
+        else:
+            exact = sb.segment_backward_reference(*(a.double() for a in cuda),
+                                                  kp, DT, Rt)
+            for got, twin, ref in zip((K, d), (K_ref, d_ref), exact):
+                assert _rel(got, ref) <= max(10 * _rel(twin, ref), 1e-6)

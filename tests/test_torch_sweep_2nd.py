@@ -119,7 +119,7 @@ def sweep_case(request):
 def test_sweep_twin_matches_jax(sweep_case, impl):
     kind, (K, d), ref = sweep_case
     K_ref, d_ref = (np.asarray(a) for a in ref[impl])
-    n, m = sb2.KERNEL_WIDTHS[kind]
+    n, m = sb2.widths(kind, 7)
     assert K.shape == (K_ref.shape[0], m, n, B) == K_ref.shape
     np.testing.assert_allclose(K.numpy(), K_ref, atol=1e-10, rtol=0)
     np.testing.assert_allclose(d.numpy(), d_ref, atol=1e-10, rtol=0)
@@ -144,14 +144,15 @@ def _sweep_inputs(n, m, Bl, H, kp_steps, seed):
 
 
 def _call(kind, args, kp, fn=None):
+    Rt = [1e-5] * args[4].shape[1]
     if kind == "second":
-        return (fn or sb2.segment_backward_2nd)(*args, kp, 0.01, [1e-5] * 7)
-    return (fn or sb2.segment_backward_time1)(*args, kp, [1e-5] * 8)
+        return (fn or sb2.segment_backward_2nd)(*args, kp, 0.01, Rt)
+    return (fn or sb2.segment_backward_time1)(*args, kp, Rt)
 
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_wrapper_on_cpu_runs_twin_without_launch(kind):
-    n, m = sb2.KERNEL_WIDTHS[kind]
+    n, m = sb2.widths(kind, 7)
     args = [torch.as_tensor(a) for a in _sweep_inputs(n, m, 16, 5, (1, 3), 1)]
     before = dict(sb2.LAUNCHES)
     K, d = _call(kind, args, (1, 3))
@@ -173,11 +174,19 @@ def _meta(n, m, Bl=8, H=5, n_kp=1, dtype=torch.float32):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_wrapper_checks_without_a_card(kind):
-    n, m = sb2.KERNEL_WIDTHS[kind]
-    with pytest.raises(ValueError, match=r"built for \(n, m\)"):
-        _call(kind, _meta(n - 2, m - 1), (2,))
-    with pytest.raises(ValueError, match="must be a CUDA tensor"):
-        _call(kind, _meta(n, m), (2,))
+    """Any chain up to the source's limit passes the width check (and then
+    meets the device check); widths that are not the kind's, or above the
+    limit, raise naming it, before any build."""
+    n, m = sb2.widths(kind, 7)
+    with pytest.raises(ValueError, match=r"takes \(n, m\)"):
+        _call(kind, _meta(n - 1, m), (2,))
+    for dof in (7, 6, 3, 1):
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            _call(kind, _meta(*sb2.widths(kind, dof)), (2,))
+    for dtype in (torch.float32, torch.float64):
+        top = sb2.MAX_DOF[kind][dtype]
+        with pytest.raises(ValueError, match=rf"dof <= {top} joints.*Queue 3 F3"):
+            _call(kind, _meta(*sb2.widths(kind, top + 1), dtype=dtype), (2,))
     with pytest.raises(TypeError, match="float32/float64"):
         _call(kind, _meta(n, m, dtype=torch.float16), (2,))
     mixed = [torch.zeros(a.shape, dtype=a.dtype) if i == 0 else a
@@ -186,26 +195,45 @@ def test_wrapper_checks_without_a_card(kind):
         _call(kind, mixed, (2,))
 
 
+def _rel(got, want):
+    """Largest error relative to the largest output."""
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+# each kind at the 7-DoF arm, two narrower chains, one chain above the arm,
+# and each type's limit
+CARD_CASES = [(kind, dof) for kind in KINDS
+              for dof in sorted({7, 6, 3, 8, *sb2.MAX_DOF[kind].values()})]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", KINDS)
-def test_kernel_matches_twin_on_card(kind):
+@pytest.mark.parametrize("kind,dof", CARD_CASES)
+def test_kernel_matches_twin_on_card(kind, dof):
     """float64: relative error <= 1e-9 (the correctness gate); float32:
-    finite (its error is reported by chip_smoke.py)."""
+    error against the float64 twin on the same (rounded) inputs within 10x
+    the float32 twin's own, or 1e-6; each type up to its `MAX_DOF`."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    n, m = sb2.KERNEL_WIDTHS[kind]
+    n, m = sb2.widths(kind, dof)
     kp = (2, 5)
+    dt = 0.01 if kind == "second" else None
     args = _sweep_inputs(n, m, 300, 9, kp, seed=2)
     for dtype in (torch.float64, torch.float32):
+        if dof > sb2.MAX_DOF[kind][dtype]:
+            continue
         cuda = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in args]
         before = sb2.LAUNCHES[kind]
         K, d = _call(kind, cuda, kp)
         torch.cuda.synchronize()
         assert sb2.LAUNCHES[kind] == before + 1
-        K_ref, d_ref = sb2.segment_backward_2nd_reference(
-            kind, *cuda, kp, 0.01 if kind == "second" else None, [1e-5] * m)
+        assert bool(torch.isfinite(K).all()) and bool(torch.isfinite(d).all())
+        K_ref, d_ref = sb2.segment_backward_2nd_reference(kind, *cuda, kp, dt,
+                                                          [1e-5] * m)
         if dtype == torch.float64:
             for got, ref in ((K, K_ref), (d, d_ref)):
-                rel = float((got - ref).abs().max() / ref.abs().max())
-                assert rel <= 1e-9, rel
-        assert bool(torch.isfinite(K).all()) and bool(torch.isfinite(d).all())
+                assert _rel(got, ref) <= 1e-9
+        else:
+            exact = sb2.segment_backward_2nd_reference(
+                kind, *(a.double() for a in cuda), kp, dt, [1e-5] * m)
+            for got, twin, ref in zip((K, d), (K_ref, d_ref), exact):
+                assert _rel(got, ref) <= max(10 * _rel(twin, ref), 1e-6)
