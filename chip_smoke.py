@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Four paths, each through `ilqr_planner_torch.parallel.solve_batch` on a
-7-DoF Panda, float32:
+Ten paths, each through `ilqr_planner_torch.parallel.solve_batch`,
+float32:
   flagship   position + quaternion via-points at steps 49 and 99, H=100,
-             dt=0.1, 10 iterations, B=36864 (backward: segment_backward);
+             dt=0.1, 10 iterations, B=36864, 7-DoF Panda (backward:
+             segment_backward);
   recursive  the flagship's problem and its first 4096 lanes through
              solve_batch(prefer_fleet=False): the recursive solver, dense
              stage terms at every step (backward: riccati);
@@ -14,7 +15,20 @@ Four paths, each through `ilqr_planner_torch.parallel.solve_batch` on a
              (backward: segment_backward_2nd);
   timeopt    the sqrt-dt time-optimal kind, spacetime via-points at 49
              (t=2) and 99 (t=5), H=100, 20 iterations, B=2048 (backward:
-             segment_backward_time1; every line-search trial: rollout_time1).
+             segment_backward_time1; every line-search trial: rollout_time1);
+  flagship_ov  the flagship with per-lane overrides of the targets (moved
+             by N(0, 0.02 m)), the step-99 precision (scaled by U(1, 1.5)),
+             the step-49 dead-zone radius (U(0, 0.01) m) and the
+             orientation thresholds (zeros), record=True, B=36864;
+  sequential_h600  two object frames (a sequential spec), targets at 300
+             and 599, H=600, dt=0.01, 10 iterations, B=1024 (segment_backward
+             at H=600);
+  planar2d   a 3-link planar arm, position targets at 49 and 99, H=100, 10
+             iterations, B=4096 (segment_backward at n=3);
+  sequential_h600_recursive, hybrid_h500_recursive, planar2d_recursive
+             sequential_h600, the hybrid joint + position/orientation spec
+             (H=500, B=8192) and planar2d through solve_batch(prefer_fleet=
+             False) (riccati at (7, 12), (7, 13) and (3, 2)), 2 timed repeats.
 
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device and build: the card's name and power limit; the nvcc build of
@@ -29,33 +43,54 @@ Phases (each prints one JSON line; any failure exits non-zero):
      them) on a short horizon, with keypoints (precisions) at the first and
      the last step; riccati also at its joint (nq=7) and point (nq=3)
      widths; and each kernel at the widths of a 6-DoF chain
-     (segment_backward also at n=3; riccati at (6, 6) and (6, 3));
+     (segment_backward also at n=3; riccati at (6, 6) and (6, 3)); riccati
+     at the sequential specs' (7, 12) H=600 and (7, 13) H=500 and the
+     planar (3, 2), segment_backward at H=600 with inner keypoints at 0
+     and 299 on a ragged batch and at the planar n=3;
   3. each path end to end: a first solve with every launch count set to 0
      just before it and read just after (each kernel of the path must have
      launched: once per backward sweep, and for the rollout once per
      line-search trial plus once for the solve's initial rollout; no
      backward kernel of another path may have launched), then the median of
      5 timed repeats with the spread, solves/s, median cost and iterations;
+     sequential_h600 and planar2d within 2x of the JAX package's float32
+     median cost; the recursive runs of riccati once a backward sweep;
+     flagship_ov's record ends at each lane's final cost, NaN
+     beyond its last iteration, with the host time of binding its
+     overrides; solve_batch_staged on flagship_ov's lanes (first stage 8
+     of 10 iterations) against plain solve_batch (the same iterations,
+     alpha, costs and U, bit for bit);
   4. each path's first 64 lanes in float64, on the card and on the CPU
      (where the wrappers run the twins): same iterations and alpha per lane,
      every lane's cost within 1e-8 relative, or within 10 times that lane's
      own CPU spread under a 1e-15 relative change of x0 (up or down) where
-     the lane is that sensitive; and the recursive path against the fleet path on the
-     card on the same 64 lanes, cost within 1e-8 relative; and 64 lanes of
+     the lane is that sensitive; and the recursive path against the fleet
+     path on the card on the same 64 lanes, cost within 1e-8 relative; and 64 lanes of
      a joint-target problem (nb_deriv 1, the riccati kernel at nq=7)
      through the recursive solver on the card and on the CPU, float64, same
      iterations and alpha per lane, every lane's cost within 1e-8 relative;
      and 64 lanes of the flagship's problem on a 6-DoF chain (panda_link0
      to panda_link6) through the fleet on the card and on the CPU, under the
-     paths' gates;
+     paths' gates; and 64 lanes of flagship_ov (with all four overrides,
+     whose per-lane precisions take the recursive route's generic sweep,
+     and with three, which keep riccati), sequential_h600 (riccati at
+     nq=12), a sequential spec with a per-subsystem list override,
+     planar2d (riccati at (3, 2)) and the hybrid joint + position/
+     orientation spec of H=500 (riccati at nq=13), each on the fleet and on
+     the recursive route, card against CPU, and the two routes against each
+     other on the card (the same per-lane rule, on the larger of the two
+     routes' CPU spreads: the routes round otherwise, and on the CPU their
+     gap stays within 3.2x that spread on every lane of five batches,
+     `tools/route_gap.py`); and record=True on the recursive route (riccati)
+     and in ilqr.solve, card against CPU, 64 lanes, float64;
   5. one line, no gate: at B=4096, the dense input assembly and the riccati
      kernel beside the fleet's keypoint-sparse assembly and segment_backward;
   6. two lines, no gate: the riccati kernel against its twin at inputs
      harder than phase 2's (the limit penalty live on 5% and 20% of the
      entries), beside the twin against an LU recursion on the same inputs;
-  7. a torch.profiler trace of a window of each path's solve (its initial
-     rollout and first two iterations, each a backward sweep and a line
-     search): device busy time, its share of the window's unprofiled wall
+  7. a torch.profiler trace of a window of each path's solve but
+     planar2d's (its initial rollout and first two iterations, each a
+     backward sweep and a line search): device busy time, its share of the window's unprofiled wall
      time, the top kernels, and the device time a launch of the path's
      hand-written kernels on the solve's own data (the full table goes to
      chiprun_out/profile_<path>.txt).
@@ -477,7 +512,8 @@ def phase_device_and_build():
                  for kind in ("second", "time1") for d in (7, 6)},
               **{f"rollout_time1 n={n}": (rollout_time1, (n,)) for n in (8, 7)},
               **{f"riccati {n}x{nq}": (riccati, (n, nq))
-                 for n, nq in ((7, 6), (7, 7), (7, 3), (6, 6), (6, 3))}}
+                 for n, nq in ((7, 6), (7, 7), (7, 3), (6, 6), (6, 3), (7, 12),
+                               (7, 13), (3, 2))}}
     t0 = time.time()
     with ThreadPoolExecutor(len(widths)) as ex:     # one nvcc per library
         built = list(ex.map(lambda w: w[0].build(*w[1]), widths.values()))
@@ -808,18 +844,21 @@ def _read_counts():
             "trials": fleet.TRIALS, "recursive_trials": ilqr.TRIALS}
 
 
-def _drive(torch, spec, x0s, U0s, nb_iter, prefer_fleet=True):
-    """One solve with every count at 0 just before it, then REPEATS timed
-    ones -> (result, counts, first_s, repeat times, the solve as a callable
-    of the number of iterations)."""
+def _drive(torch, spec, x0s, U0s, nb_iter, prefer_fleet=True, extra_ov=None,
+           record=False, repeats=None):
+    """One solve with every count at 0 just before it, then `repeats`
+    (default REPEATS) timed ones -> (result, counts, first_s, repeat times, the solve as a callable
+    of the number of iterations). `extra_ov`: per-scenario keypoint
+    overrides beside the initial state."""
     from ilqr_planner_torch.parallel import solve_batch
 
     x0s_t = torch.as_tensor(x0s, dtype=torch.float32, device="cuda")
     U0s_t = torch.as_tensor(U0s, dtype=torch.float32, device="cuda")
-    ov = {"q0": x0s_t[:, :7], "x0": x0s_t}
+    ov = {"q0": x0s_t[:, :spec.dof], "x0": x0s_t, **(extra_ov or {})}
 
     def run(n=nb_iter):
-        return solve_batch(spec, ov, U0s_t, n, prefer_fleet=prefer_fleet)
+        return solve_batch(spec, ov, U0s_t, n, prefer_fleet=prefer_fleet,
+                           record=record)
 
     torch.cuda.synchronize()
     _reset_counts()
@@ -829,7 +868,7 @@ def _drive(torch, spec, x0s, U0s, nb_iter, prefer_fleet=True):
     first_s = time.time() - t0
     counts = _read_counts()
     times = []
-    for _ in range(REPEATS):
+    for _ in range(REPEATS if repeats is None else repeats):
         torch.cuda.synchronize()
         t0 = time.time()
         res = run()
@@ -986,6 +1025,22 @@ def _solver(path, spec, nb_iter):
     return make_fleet_solver(spec, nb_iter)
 
 
+def _cpu_spread(solve, spec_cpu, x0s, U0s, c_cpu=None):
+    """Each lane's own CPU spread: the same solve of the whole batch (a lane
+    solved apart rounds otherwise) from x0 (its joint positions) moved by
+    1e-15 relative up and down, the larger relative move of its cost from
+    c_cpu (the unmoved solve's, solved here when None)."""
+    if c_cpu is None:
+        c_cpu = solve(spec_cpu, x0s, U0s).cost.numpy()
+    spread = np.zeros(len(c_cpu))
+    for sign in (1.0, -1.0):
+        x0p = x0s.copy()
+        x0p[:, :7] *= 1.0 + sign * XCHECK_PERTURB
+        moved = solve(spec_cpu, x0p, U0s).cost.numpy()
+        spread = np.maximum(spread, np.abs(moved - c_cpu) / np.abs(c_cpu))
+    return spread
+
+
 def _card_vs_cpu(torch, path, solve, spec_fn, x0s, U0s, kernels, sensitive,
                  **info):
     """64 lanes of a problem in float64, `solve(spec, x0s, U0s)` on the card
@@ -1018,15 +1073,7 @@ def _card_vs_cpu(torch, path, solve, spec_fn, x0s, U0s, kernels, sensitive,
            "tolerance": XCHECK_REL}
     over = np.flatnonzero(rel > XCHECK_REL)
     if sensitive and over.size:
-        # each lane's own CPU spread: the same solve of the whole batch (a
-        # lane solved apart rounds otherwise) from x0 (its joint positions)
-        # moved by 1e-15 relative up and down, the larger move
-        spread = np.zeros_like(rel)
-        for sign in (1.0, -1.0):
-            x0p = x0s.copy()
-            x0p[:, :7] *= 1.0 + sign * XCHECK_PERTURB
-            moved = solve(specs["cpu"], x0p, U0s).cost.numpy()
-            spread = np.maximum(spread, np.abs(moved - c_cpu) / np.abs(c_cpu))
+        spread = _cpu_spread(solve, specs["cpu"], x0s, U0s, c_cpu)
         tol[over] = np.maximum(XCHECK_REL, XCHECK_SENS_FACTOR * spread[over])
         out["lanes_over_1e-8"] = [
             {"lane": int(i), "rel_diff": float(rel[i]),
@@ -1221,6 +1268,501 @@ def profile_window(torch, path, run):
     return ours
 
 
+# ---------------------------------------------------------------------------
+# this slice's configurations: per-scenario keypoint overrides with record,
+# two object frames (a sequential spec), the planar arm, and the hybrid
+# joint + position/orientation spec
+# ---------------------------------------------------------------------------
+
+# The JAX package's own float32 median costs on its TPU (BENCH_TABLE.json
+# rows sequential_2frames_h600_ilqr10 and planar2d_h100_ilqr10): quality
+# targets, never speeds.
+SEQ_H, SEQ_B, SEQ_JAX_COST = 600, 1024, 1.341e-06
+PLANAR_B, PLANAR_JAX_COST = 4096, 2.705e-4
+HYBRID_H, HYBRID_B, HYBRID_JAX_COST = 500, 8192, 2.437e-4
+# timed repeats of each recursive-route run of this slice's problems (a
+# solve there takes seconds: the recursion is host-bound over H steps)
+RECURSIVE_SLICE_REPEATS = 2
+# the two object frames of the reference's multi-frame tutorial
+OBJ_QUATS = ([0.63758403393523, 0.2994657314658187, 0.6042309402208079,
+              -0.37244039285286973],
+             [-0.03647984, 0.94060485, 0.33742794, 0.00860923])
+OBJ_POS = ([0.62, 0.05, 0.34], [0.32, 0.05, 0.54])
+PLANAR_LENGTHS = [1.0, 0.8, 0.5]
+PLANAR_Q0 = np.array([0.5, -0.2, 0.8])
+OV_SEED = 10
+
+
+def flagship_ov_arrays(batch):
+    """The per-lane draws of the overridden flagship, seed 10: the target
+    positions at steps 49 and 99 moved by N(0, 0.02 m) per axis, the
+    step-99 precision scaled by U(1, 1.5), a dead-zone radius U(0, 0.01) m
+    at step 49."""
+    rng = np.random.default_rng(OV_SEED)
+    return (rng.normal(scale=0.02, size=(batch, 2, 3)),
+            rng.uniform(1.0, 1.5, size=batch), rng.uniform(0.0, 0.01, size=batch))
+
+
+def flagship_overrides(torch, spec, batch, names=("mu", "prec", "pos_radius",
+                                                  "orn_thresh")):
+    """The overrides of `flagship_ov_arrays` as [B, ...] tensors on the
+    spec's device and in its dtype (orn_thresh all zeros), built there: the
+    float32 precisions of 36864 lanes are 531 MB."""
+    shift, scale, radius = flagship_ov_arrays(batch)
+    dev, dt = spec.device, spec.dtype
+    out = {}
+    if "mu" in names:
+        mu = spec.mu[None].repeat(batch, 1, 1)
+        mu[:, [49, 99], :3] += torch.as_tensor(shift, dtype=dt, device=dev)
+        out["mu"] = mu
+    if "prec" in names:
+        prec = spec.prec[None].repeat(batch, 1, 1, 1)
+        prec[:, 99] *= torch.as_tensor(scale, dtype=dt, device=dev)[:, None, None]
+        out["prec"] = prec
+    if "pos_radius" in names:
+        rad = torch.zeros((batch, H), dtype=dt, device=dev)
+        rad[:, 49] = torch.as_tensor(radius, dtype=dt, device=dev)
+        out["pos_radius"] = rad
+    if "orn_thresh" in names:
+        out["orn_thresh"] = torch.zeros((batch, H, 3), dtype=dt, device=dev)
+    return out
+
+
+def _frames():
+    out = []
+    for quat, pos in zip(OBJ_QUATS, OBJ_POS):
+        w, x, y, z = quat
+        T = np.eye(4)
+        T[:3, :3] = [[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                     [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                     [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]]
+        T[:3, 3] = pos
+        out.append(T)
+    return out
+
+
+def sequential_spec_h600(torch, dtype, device):
+    """bench_table.py sequential_2frames_h600_ilqr10: two object frames,
+    keypoints at 300 (frame 1) and 599 (frame 2), H=600, dt=0.01."""
+    from ilqr_planner_torch.systems.keypoints import PosOrnKeypoint
+    from ilqr_planner_torch.systems.spec import make_spec, sequential_spec
+
+    robot = _panda(dtype, device)
+    obj1, obj2 = _frames()
+    qmax = np.ones(7) * np.pi * 10
+    qd = np.diag([1, 1, 1, 0, 0, 0])
+    cmd = np.ones(7) * 1e-5
+    kw = dict(dt=0.01, q0=Q0, q_max=qmax, q_min=-qmax, dtype=dtype, device=device)
+    sub1 = make_spec("posorn", robot.with_frame(obj1),
+                     [PosOrnKeypoint([0, 0, -0.15], [1, 0, 0, 0], qd, SEQ_H // 2)],
+                     cmd, SEQ_H, 1, **kw)
+    sub2 = make_spec("posorn", robot.with_frame(obj2),
+                     [PosOrnKeypoint([0.1, 0.1, -0.1], [1, 0, 0, 0], qd, SEQ_H - 1)],
+                     cmd, SEQ_H, 1, **kw)
+    return sequential_spec((sub1, sub2), cmd, dtype=dtype)
+
+
+def sequential_batch(batch):
+    """bench_table.py's _q0s(B, sigma=0.02): q0 + 0.02 N(0, 1), seed 0."""
+    rng = np.random.default_rng(0)
+    q0s = Q0[None] + 0.02 * rng.normal(size=(batch, 7))
+    return q0s, np.zeros((batch, SEQ_H - 1, 7))
+
+
+def planar_spec(torch, dtype, device):
+    """bench_table.py planar2d_h100_ilqr10: a 3-link planar arm (lengths 1,
+    0.8, 0.5), position targets at 49 and 99, H=100, dt=0.1."""
+    from ilqr_planner_torch.models import PlanarRobot, Robot
+    from ilqr_planner_torch.systems.keypoints import PointKeypoint
+    from ilqr_planner_torch.systems.spec import make_spec
+
+    robot = Robot.from_planar(PlanarRobot(torch.as_tensor(
+        PLANAR_LENGTHS, dtype=dtype, device=device)))
+    kps = [PointKeypoint([1.2, 0.9], np.eye(2), 49),
+           PointKeypoint([0.5, 1.6], np.eye(2), 99)]
+    return make_spec("point", robot, kps, np.ones(3) * 1e-5, H, 1, dt=0.1,
+                     q0=PLANAR_Q0, dtype=dtype, device=device)
+
+
+def planar_batch(batch):
+    """q0 + 0.05 N(0, 1), seed 2 (bench_table.py)."""
+    rng = np.random.default_rng(2)
+    q0s = PLANAR_Q0[None] + 0.05 * rng.normal(size=(batch, 3))
+    return q0s, np.zeros((batch, H - 1, 3))
+
+
+def hybrid_spec(torch, dtype, device):
+    """bench_table.py hybrid_h500_ilqr10: a joint target at 250 and a
+    position/orientation target at 499, H=500, dt=0.01."""
+    from ilqr_planner_torch.systems.keypoints import AngularKeypoint, PosOrnKeypoint
+    from ilqr_planner_torch.systems.spec import make_spec, sequential_spec
+
+    robot = _panda(dtype, device)
+    qmax = np.ones(7) * np.pi * 10
+    cmd = np.ones(7) * 1e-5
+    kw = dict(dt=0.01, q0=Q0, q_max=qmax, q_min=-qmax, dtype=dtype, device=device)
+    sj = make_spec("joint", robot, [AngularKeypoint(Q0 + 0.2, np.eye(7) * 0.1,
+                                                    HYBRID_H // 2)],
+                   cmd, HYBRID_H, 1, **kw)
+    st = make_spec("posorn", robot, [PosOrnKeypoint(*T2, np.diag(QD6),
+                                                    HYBRID_H - 1)],
+                   cmd, HYBRID_H, 1, **kw)
+    return sequential_spec((sj, st), cmd, dtype=dtype)
+
+
+def hybrid_batch(batch):
+    """bench_table.py's _q0s(B, sigma=0.02, seed=5)."""
+    rng = np.random.default_rng(5)
+    q0s = Q0[None] + 0.02 * rng.normal(size=(batch, 7))
+    return q0s, np.zeros((batch, HYBRID_H - 1, 7))
+
+
+def _gate_quality(out, name, jax_cost):
+    out["jax_tpu_median_cost"] = jax_cost
+    out["median_cost_over_jax"] = out["median_cost"] / jax_cost
+    emit(out)
+    if not out["shapes_ok"] or not out["finite"] or not out["finite_costs"]:
+        fail(f"{name}: result has the wrong shape or non-finite values")
+    if not 1 / COST_RATIO_GATE <= out["median_cost_over_jax"] <= COST_RATIO_GATE:
+        fail(f"{name}: median cost {out['median_cost']} not within "
+             f"{COST_RATIO_GATE}x of the JAX record {jax_cost}")
+
+
+def _gate_only(name, counts, sweeps, kernel="segment_backward"):
+    if sweeps == 0 or counts[kernel] != sweeps:
+        fail(f"{name}: {kernel} launched {counts[kernel]} times for {sweeps} "
+             f"sweeps")
+    others = [k for k in KERNELS if counts[k] and k != kernel]
+    if others:
+        fail(f"{name}: kernels of other paths launched: {others}")
+
+
+def phase_flagship_ov(torch):
+    """The flagship with per-lane targets, precisions, dead zones and
+    thresholds, record=True, at full width; the host time of binding the
+    overrides to lanes; the record gate."""
+    from ilqr_planner_torch.solvers import fleet
+
+    spec = flagship_spec(torch, torch.float32, "cuda")
+    q0s, U0s = flagship_batch(B)
+    t0 = time.time()
+    ov = flagship_overrides(torch, spec, B)
+    torch.cuda.synchronize()
+    make_s = time.time() - t0
+    res, counts, first_s, times, run = _drive(torch, spec, q0s, U0s, NB_ITER,
+                                              extra_ov=ov, record=True)
+    cc = fleet._Consts(spec, tuple(sorted(ov)))
+    bind_s = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fleet._bind_ov(cc, ov)
+        torch.cuda.synchronize()
+        bind_s.append(time.time() - t0)
+    sweeps = int(res.iterations.max())
+    cost = res.cost.double().cpu().numpy()
+    it = res.iterations.long()
+    pc = res.progress["cost"]
+    lanes = torch.arange(B, device="cuda")
+    cols = torch.arange(NB_ITER, device="cuda")[None]
+    record_ok = (bool(torch.equal(pc[lanes, it - 1], res.cost))
+                 and bool(torch.equal(torch.isnan(pc), cols >= it[:, None]))
+                 and bool(torch.equal(torch.isnan(res.progress["alpha"]),
+                                      cols >= it[:, None])))
+    out = {"phase": "end_to_end", "path": "flagship_ov", "nb_iter": NB_ITER,
+           "overrides": sorted(ov), "record": True,
+           **_result_summary(res, B, first_s, times, counts,
+                             ((B, H, N), (B, H - 1, N), (B, H, 7))),
+           "converged_frac": float(np.mean(cost < 1e-4)),
+           "backward_sweeps": sweeps,
+           "make_overrides_s": make_s,
+           "bind_overrides_ms_median": 1e3 * statistics.median(bind_s),
+           "record_gate": record_ok}
+    emit(out)
+    if not out["shapes_ok"] or not out["finite"] or not out["finite_costs"]:
+        fail("flagship_ov: result has the wrong shape or non-finite values")
+    if out["converged_frac"] < 0.95:
+        fail(f"flagship_ov: converged fraction {out['converged_frac']} < 0.95")
+    if not record_ok:
+        fail("flagship_ov: the record does not end at each lane's final cost "
+             "with NaN beyond its last iteration")
+    _gate_only("flagship_ov", counts, sweeps)
+    return out, run, ov
+
+
+def phase_staged(torch, ov):
+    """solve_batch_staged on the overridden flagship's lanes (first stage 8
+    of 10 iterations: the lanes that used 8 are solved again, in a smaller
+    batch) against plain solve_batch: the same iterations, alpha, cost and
+    U on every lane, bit for bit."""
+    from ilqr_planner_torch.parallel import solve_batch, solve_batch_staged
+
+    spec = flagship_spec(torch, torch.float32, "cuda")
+    q0s, U0s = flagship_batch(B)
+    x0 = torch.as_tensor(q0s, dtype=torch.float32, device="cuda")
+    U0 = torch.as_tensor(U0s, dtype=torch.float32, device="cuda")
+    full = {"x0": x0, **ov}
+    plain = solve_batch(spec, full, U0, NB_ITER)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    staged = solve_batch_staged(spec, full, U0, NB_ITER, first_stage=8)
+    torch.cuda.synchronize()
+    staged_s = time.time() - t0
+    rel = float(((staged.cost - plain.cost).abs() / plain.cost.abs()).max())
+    out = {"phase": "staged_vs_plain", "batch": B, "dtype": "float32",
+           "first_stage": 8, "staged_s": staged_s,
+           "lanes_restaged": int((plain.iterations >= 8).sum()),
+           "same_iterations": bool(torch.equal(staged.iterations, plain.iterations)),
+           "same_alpha": bool(torch.equal(staged.alpha, plain.alpha)),
+           "bitwise_equal_cost": bool(torch.equal(staged.cost, plain.cost)),
+           "bitwise_equal_U": bool(torch.equal(staged.U, plain.U)),
+           "cost_max_rel_diff": rel}
+    emit(out)
+    if not all(out[k] for k in ("same_iterations", "same_alpha",
+                                "bitwise_equal_cost", "bitwise_equal_U")):
+        fail("staged and plain solve_batch disagree")
+
+
+def phase_sequential(torch):
+    spec = sequential_spec_h600(torch, torch.float32, "cuda")
+    x0s, U0s = sequential_batch(SEQ_B)
+    res, counts, first_s, times, run = _drive(torch, spec, x0s, U0s, NB_ITER)
+    out = {"phase": "end_to_end", "path": "sequential_h600", "nb_iter": NB_ITER,
+           **_result_summary(res, SEQ_B, first_s, times, counts,
+                             ((SEQ_B, SEQ_H, N), (SEQ_B, SEQ_H - 1, N),
+                              (SEQ_B, SEQ_H, 14))),
+           "backward_sweeps": int(res.iterations.max())}
+    _gate_quality(out, "sequential_h600", SEQ_JAX_COST)
+    _gate_only("sequential_h600", counts, int(res.iterations.max()))
+    return out, run
+
+
+def phase_planar(torch):
+    spec = planar_spec(torch, torch.float32, "cuda")
+    x0s, U0s = planar_batch(PLANAR_B)
+    res, counts, first_s, times, run = _drive(torch, spec, x0s, U0s, NB_ITER)
+    out = {"phase": "end_to_end", "path": "planar2d", "nb_iter": NB_ITER,
+           **_result_summary(res, PLANAR_B, first_s, times, counts,
+                             ((PLANAR_B, H, 3), (PLANAR_B, H - 1, 3),
+                              (PLANAR_B, H, 2))),
+           "backward_sweeps": int(res.iterations.max())}
+    _gate_quality(out, "planar2d", PLANAR_JAX_COST)
+    _gate_only("planar2d", counts, int(res.iterations.max()))
+    return out, run
+
+
+def phase_recursive_slice(torch, path):
+    """One of this slice's problems at full width through
+    solve_batch(prefer_fleet=False), float32: the recursive solver, whose
+    riccati kernel runs at the problem's residual width (sequential_h600
+    (7, 12), hybrid_h500 (7, 13) at B = 8192 as in bench_table.py,
+    planar2d (3, 2)). Counts at 0 just before the first solve; riccati
+    once a backward sweep, no fleet kernel or trial; the median cost within
+    2x of the JAX package's record."""
+    spec_fn, batch_fn, batch, jax_cost = {
+        "sequential_h600": (sequential_spec_h600, sequential_batch, SEQ_B,
+                            SEQ_JAX_COST),
+        "hybrid_h500": (hybrid_spec, hybrid_batch, HYBRID_B, HYBRID_JAX_COST),
+        "planar2d": (planar_spec, planar_batch, PLANAR_B, PLANAR_JAX_COST)}[path]
+    spec = spec_fn(torch, torch.float32, "cuda")
+    x0s, U0s = batch_fn(batch)
+    res, counts, first_s, times, run = _drive(
+        torch, spec, x0s, U0s, NB_ITER, prefer_fleet=False,
+        repeats=RECURSIVE_SLICE_REPEATS)
+    h = spec.horizon
+    sweeps = int(res.iterations.max())      # one backward sweep an iteration
+    name = f"{path}_recursive"
+    out = {"phase": "end_to_end", "path": name, "nb_iter": NB_ITER,
+           "riccati_width": [spec.nu, spec.nq_var],
+           **_result_summary(res, batch, first_s, times, counts,
+                             ((batch, h, spec.nx), (batch, h - 1, spec.nu),
+                              (batch, h, spec.nt))),
+           "backward_sweeps": sweeps,
+           "line_search_trials": counts["recursive_trials"]}
+    _gate_quality(out, name, jax_cost)
+    _gate_only(name, counts, sweeps, kernel="riccati")
+    if counts["trials"] or counts["recursive_trials"] < sweeps:
+        fail(f"{name}: {counts['trials']} fleet trials and "
+             f"{counts['recursive_trials']} recursive trials for {sweeps} "
+             f"iterations")
+    return out, run
+
+
+def _seq_list_overrides(torch, spec, batch):
+    """A per-subsystem list override [mu_b, None]: the first frame's target
+    moved by N(0, 0.02 m) per axis a lane (seed 11), the second kept."""
+    rng = np.random.default_rng(11)
+    mu = spec.subs[0].mu[None].repeat(batch, 1, 1)
+    mu[:, SEQ_H // 2, :3] += torch.as_tensor(rng.normal(scale=0.02, size=(batch, 3)),
+                                             dtype=spec.dtype, device=spec.device)
+    return {"mu": [mu, None]}
+
+
+def phase_slice_cross_checks(torch):
+    """64 lanes of each of this slice's problems in float64, card against
+    CPU (the paths' per-lane gate), on the fleet and on the recursive route;
+    and the two routes against each other on the card (cost within 1e-8)."""
+    from ilqr_planner_torch.parallel import solve_batch
+
+    def solve(prefer, nb_iter, ov_fn=None):
+        def f(spec, x0s, U0s):
+            ov = {"x0": x0s, **(ov_fn(torch, spec, x0s.shape[0]) if ov_fn else {})}
+            return solve_batch(spec, ov, U0s, nb_iter, prefer_fleet=prefer)
+        return f
+
+    def three(t, spec, batch):
+        return flagship_overrides(t, spec, batch, ("mu", "pos_radius",
+                                                   "orn_thresh"))
+
+    fb = flagship_batch(XCHECK_B)
+    cases = [
+        # (label, spec, batch, overrides, fleet kernels, recursive kernels)
+        ("flagship_ov", flagship_spec, fb, flagship_overrides,
+         ("segment_backward",), ()),      # a per-lane prec: the generic sweep
+        ("flagship_ov3", flagship_spec, fb, three, ("segment_backward",),
+         ("riccati",)),
+        ("sequential_h600", sequential_spec_h600, sequential_batch(XCHECK_B),
+         None, ("segment_backward",), ("riccati",)),
+        ("sequential_list_ov", sequential_spec_h600, sequential_batch(XCHECK_B),
+         _seq_list_overrides, ("segment_backward",), ("riccati",)),
+        ("planar2d", planar_spec, planar_batch(XCHECK_B), None,
+         ("segment_backward",), ("riccati",)),
+        ("hybrid_h500", hybrid_spec, hybrid_batch(XCHECK_B), None,
+         ("segment_backward",), ("riccati",)),
+    ]
+    for label, spec_fn, (x0s, U0s), ov_fn, k_fleet, k_rec in cases:
+        gpu = {}
+        for prefer, kernels in ((True, k_fleet), (False, k_rec)):
+            route = "fleet" if prefer else "recursive"
+            gpu[route], _ = _card_vs_cpu(
+                torch, f"{label}_{route}", solve(prefer, NB_ITER, ov_fn), spec_fn,
+                x0s, U0s, kernels, True, route=route)
+        f, r = gpu["fleet"], gpu["recursive"]
+        rel = ((r.cost - f.cost).abs() / f.cost.abs()).cpu().numpy()
+        tol = np.full(rel.shape, XCHECK_REL)
+        over = np.flatnonzero(rel > XCHECK_REL)
+        out = {"phase": "recursive_vs_fleet", "config": label,
+               "batch": XCHECK_B, "dtype": "float64",
+               "same_iterations": bool(torch.equal(r.iterations, f.iterations)),
+               "same_alpha": bool(torch.equal(r.alpha, f.alpha)),
+               "cost_max_rel_diff": float(rel.max()), "tolerance": XCHECK_REL,
+               "U_max_abs_diff": float((r.U - f.U).abs().max())}
+        if over.size:
+            # the sensitive-lane rule of the card-vs-CPU checks, on the
+            # larger of the two routes' CPU spreads (each route rounds
+            # otherwise at every iteration)
+            # (`tools/route_gap.py` tests this rule's premise on the CPU)
+            spec_cpu = spec_fn(torch, torch.float64, "cpu")
+            sf, sr = (_cpu_spread(solve(prefer, NB_ITER, ov_fn), spec_cpu, x0s, U0s)
+                      for prefer in (True, False))
+            spread = np.maximum(sf, sr)
+            tol[over] = np.maximum(XCHECK_REL, XCHECK_SENS_FACTOR * spread[over])
+            out["lanes_over_1e-8"] = [
+                {"lane": int(i), "rel_diff": float(rel[i]),
+                 "cpu_spread_fleet": float(sf[i]),
+                 "cpu_spread_recursive": float(sr[i]),
+                 "tolerance": float(tol[i])} for i in over]
+        out["lanes_over_tolerance"] = [int(i) for i in np.flatnonzero(rel > tol)]
+        emit(out)
+        if out["lanes_over_tolerance"]:
+            fail(f"{label}: the recursive and fleet routes disagree on the card")
+
+
+def phase_record_recursive(torch):
+    """record=True on the recursive route (riccati; the overrides that keep
+    it) and in ilqr.solve, float64, 64 lanes, card against CPU: the same
+    iterations, NaN at the same entries of the record, alpha equal, every
+    recorded cost within 1e-8 relative; each lane's record ends at its
+    final cost, and so does the single solve's."""
+    from ilqr_planner_torch.parallel import solve_batch
+    from ilqr_planner_torch.solvers import ilqr
+
+    x0s, U0s = flagship_batch(XCHECK_B)
+    res, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        spec = flagship_spec(torch, torch.float64, dev)
+        ov = {"x0": x0s, **flagship_overrides(torch, spec, XCHECK_B,
+                                              ("mu", "pos_radius", "orn_thresh"))}
+        _reset_counts()
+        res[dev] = solve_batch(spec, ov, U0s, NB_ITER, prefer_fleet=False,
+                               record=True)
+        launches[dev] = _read_counts()["riccati"]
+    one = ilqr.solve(flagship_spec(torch, torch.float64, "cuda"), U0s[0],
+                     NB_ITER, record=True)
+    gpu, cpu = res["cuda"], res["cpu"]
+    pc_g, pc_c = gpu.progress["cost"].cpu(), cpu.progress["cost"]
+    finite = ~torch.isnan(pc_c)
+    rel = float(((pc_g - pc_c).abs() / pc_c.abs())[finite].max())
+    it = gpu.iterations.long().cpu()
+    out = {"phase": "record_recursive", "batch": XCHECK_B, "dtype": "float64",
+           "same_iterations": bool(torch.equal(gpu.iterations.cpu(), cpu.iterations)),
+           "same_nan": bool(torch.equal(torch.isnan(pc_g), ~finite)),
+           "same_alpha": bool(torch.equal(  # NaN beyond each lane's last
+               gpu.progress["alpha"].cpu().nan_to_num(-1.0),
+               cpu.progress["alpha"].nan_to_num(-1.0))),
+           "record_ends_at_cost": bool(torch.equal(
+               pc_g[torch.arange(XCHECK_B), it - 1], gpu.cost.cpu())),
+           "single_solve_record_ends_at_cost": bool(
+               one.progress["cost"][int(one.iterations) - 1] == one.cost),
+           "recorded_cost_max_rel_diff": rel, "tolerance": XCHECK_REL,
+           "riccati_launches": launches}
+    emit(out)
+    if not all(out[k] for k in ("same_iterations", "same_nan", "same_alpha",
+                                "record_ends_at_cost",
+                                "single_solve_record_ends_at_cost")):
+        fail("record on the recursive route: card and CPU disagree")
+    if launches["cuda"] == 0 or launches["cpu"]:
+        fail(f"record on the recursive route: riccati launches {launches}")
+    if rel > XCHECK_REL:
+        fail(f"record on the recursive route: recorded costs {rel} apart")
+
+
+def phase_slice_kernels(torch):
+    """The kernels at this slice's new shapes against their twins: riccati
+    at the sequential specs' widths (7, 12) and (7, 13) and the planar
+    (3, 2); segment_backward at H=600 with inner keypoints at 299 and at 0
+    on a ragged batch, and at the planar arm's n = 3, H = 100, B = 4096.
+    -> {label: the kernel-vs-twin line}"""
+    from ilqr_planner_torch.ops.cuda_kernels import riccati as ric
+    from ilqr_planner_torch.ops.cuda_kernels import segment_backward as sb
+
+    res = {}
+    for n, nq, h, batch in ((7, 12, SEQ_H, SEQ_B + 37), (7, 13, HYBRID_H, HYBRID_B + 37),
+                            (3, 2, H, PLANAR_B + 37)):
+        Rt_n = [1e-5] * n
+        prec = np.zeros((h, nq, nq))
+        prec[[h // 2, h - 1]] = np.eye(nq)
+        out = _kernel_vs_twin(
+            torch, "riccati", {"n": n, "nq": nq, "H": h, "B": batch,
+                               "prec_steps": (h // 2, h - 1)},
+            riccati_inputs(batch, seed=8, nq=nq, h=h, n=n) + (prec,),
+            lambda *a: ric.riccati_backward(*a, Rt_n, 0.01),
+            lambda *a: ric.riccati_backward_reference(*a, Rt_n, 0.01), 2, inner=3)
+        out.update(bound(riccati_bytes(n, nq, h, batch, 4),
+                         riccati_flops(n, nq, h, batch)))
+        out["launch"] = _launch_of(
+            torch, "riccati", lambda dt_: ric.launch_geometry(batch, dt_, n, nq),
+            lambda dt_: ric.kernel_geometry(batch, dt_, n, nq))
+        res[f"riccati {n}x{nq}"] = _gate_kernel(out)
+    for n, hm1, batch, kp, dt, tag in (
+            (N, SEQ_H - 1, SEQ_B + 37, (0, 299), 0.01, "H600"),
+            (3, H - 1, PLANAR_B, KP_INNER, 0.1, "n3")):
+        out = _kernel_vs_twin(
+            torch, "segment_backward", {"n": n, "H": hm1 + 1, "B": batch,
+                                        "kp_inner": kp},
+            sweep_inputs(n, n, hm1, len(kp), batch, seed=9),
+            lambda *a: sb.segment_backward(*a, kp, dt, [1e-5] * n),
+            lambda *a: sb.segment_backward_reference(*a, kp, dt, [1e-5] * n),
+            2, inner=3)
+        out.update(bound(sweep_bytes(n, hm1, len(kp), batch, 4),
+                         sweep_flops(n, hm1, len(kp), batch)))
+        out["launch"] = _launch_of(
+            torch, "segment_backward", lambda dt_: sb.launch_geometry(batch, dt_, n),
+            lambda dt_: sb.kernel_geometry(batch, dt_, n))
+        res[f"segment_backward {tag}"] = _gate_kernel(out)
+    return res
+
+
 def main():
     import torch
 
@@ -1242,25 +1784,37 @@ def main():
 
     timed("build", phase_device_and_build)
     kv = timed("kernels_vs_twins", phase_kernels_vs_twins, torch)
+    kv.update(timed("kernels_vs_twins", phase_slice_kernels, torch))
     e2e = {}
+    out_ov, run_ov, ov = timed("flagship_ov", phase_flagship_ov, torch)
+    e2e["flagship_ov"] = (out_ov, run_ov)
+    timed("staged", phase_staged, torch, ov)
+    del ov
+    torch.cuda.empty_cache()
+    e2e["sequential_h600"] = timed("sequential_h600", phase_sequential, torch)
+    e2e["planar2d"] = timed("planar2d", phase_planar, torch)
+    for path in ("sequential_h600", "hybrid_h500", "planar2d"):
+        e2e[f"{path}_recursive"] = timed(f"{path}_recursive",
+                                         phase_recursive_slice, torch, path)
+    timed("slice_cross_checks", phase_slice_cross_checks, torch)
+    timed("slice_cross_checks", phase_record_recursive, torch)
     e2e["flagship"] = timed("flagship", phase_flagship, torch)
     e2e["recursive"] = timed("recursive", phase_recursive, torch)
     for path in PATHS:
         e2e[path] = timed(path, phase_new_path, torch, path)
-    for path in e2e:
+    for path in ("flagship", "recursive", *PATHS):
         timed("cross_checks", phase_cross_check, torch, path)
     timed("cross_checks", phase_joint_cross_check, torch)
     timed("cross_checks", phase_chain6_cross_check, torch)
     timed("dense_vs_sparse", phase_dense_vs_sparse, torch)
     timed("riccati_rounding", phase_riccati_rounding, torch)
-    profiled = {}           # kernel -> device ms a launch in its path's window
-    for path, (_, run) in e2e.items():
-        for fn, (ms, _) in timed("profiles", profile_window, torch, path,
-                                 run).items():
-            profiled[KERNEL_FUNCTIONS[fn]] = ms
+    profiled = {}   # path -> {kernel: device ms a launch in its window}
+    for path in ("flagship", "recursive", *PATHS, "flagship_ov",
+                 "sequential_h600"):
+        ours = timed("profiles", profile_window, torch, path, e2e[path][1])
+        profiled[path] = {KERNEL_FUNCTIONS[fn]: ms for fn, (ms, _) in ours.items()}
 
-    def row(name, src, replaces, kv_key, launches):
-        k = kv[kv_key]
+    def row(name, src, replaces, k, launches, path, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"ilqr_planner_torch/csrc/{src}",
                 "replaces": replaces, "launches": launches,
@@ -1270,15 +1824,18 @@ def main():
                 "ms_f64": k["kernel_ms_f64"], "plain_ms_f64": k["twin_ms_f64"],
                 "bound_ms": k["bound_ms_f32"], "bound_by": k["bound_by"],
                 "library_ms": None,
-                "profiled_device_ms": profiled.get(name),
-                "launch": k.get("launch"),
+                "profiled_device_ms": profiled.get(path, {}).get(name),
+                "launch": k.get("launch"), "shapes": k["shapes"], **extra,
                 **{key: k[f"kernel_{key}"] for key in
                    ("ms_one_launch_f32", "ms_one_launch_f64")
                    if f"kernel_{key}" in k}}
 
     pallas = "ilqr_planner_tpu/ops/pallas_kernels/"
-    riccati_row = row("riccati", "riccati.cu", pallas + "riccati.py:258",
-                      "riccati", e2e["recursive"][0]["launches"]["riccati"])
+    sb_src = pallas + "segment_backward.py:339"
+    ric_src = pallas + "riccati.py:258"
+    riccati_row = row("riccati", "riccati.cu", ric_src, kv["riccati"],
+                      e2e["recursive"][0]["launches"]["riccati"], "recursive",
+                      width="7x6")
     for key in ("riccati_dense", f"riccati_b{B}", f"riccati_dense_b{B}"):
         tag = key.removeprefix("riccati_")
         riccati_row.update({f"ms_{tag}": kv[key]["kernel_ms_f32"],
@@ -1286,19 +1843,38 @@ def main():
                             f"plain_ms_{tag}": kv[key]["twin_ms_f32"],
                             f"bound_ms_{tag}": kv[key]["bound_ms_f32"],
                             f"max_abs_err_{tag}": kv[key]["max_abs_err_f64"]})
+    ov_launches = e2e["flagship_ov"][0]["launches"]["segment_backward"]
     emit({"kernels": [
-        row("segment_backward", "segment_backward.cu",
-            pallas + "segment_backward.py:339", "segment_backward",
-            e2e["flagship"][0]["launches"]["segment_backward"]),
+        row("segment_backward", "segment_backward.cu", sb_src,
+            kv["segment_backward"],
+            e2e["flagship"][0]["launches"]["segment_backward"], "flagship",
+            width="n=7 H=100", launches_flagship_ov=ov_launches,
+            profiled_device_ms_flagship_ov=profiled["flagship_ov"].get(
+                "segment_backward")),
+        row("segment_backward", "segment_backward.cu", sb_src,
+            kv["segment_backward H600"],
+            e2e["sequential_h600"][0]["launches"]["segment_backward"],
+            "sequential_h600", width="n=7 H=600 (sequential_h600)"),
+        row("segment_backward", "segment_backward.cu", sb_src,
+            kv["segment_backward n3"],
+            e2e["planar2d"][0]["launches"]["segment_backward"], "planar2d",
+            width="n=3 H=100 (planar2d)"),
         row("segment_backward_2nd", "segment_backward_2nd.cu",
-            pallas + "segment_backward_2nd.py:255", "second",
-            e2e["posorn2nd"][0]["launches"]["segment_backward_2nd"]),
+            pallas + "segment_backward_2nd.py:255", kv["second"],
+            e2e["posorn2nd"][0]["launches"]["segment_backward_2nd"], "posorn2nd"),
         row("segment_backward_time1", "segment_backward_2nd.cu",
-            pallas + "segment_backward_2nd.py:270", "time1",
-            e2e["timeopt"][0]["launches"]["segment_backward_time1"]),
+            pallas + "segment_backward_2nd.py:270", kv["time1"],
+            e2e["timeopt"][0]["launches"]["segment_backward_time1"], "timeopt"),
         row("rollout_time1", "rollout_time1.cu", pallas + "rollout_time1.py:169",
-            "rollout_time1", e2e["timeopt"][0]["launches"]["rollout_time1"]),
-        riccati_row],
+            kv["rollout_time1"], e2e["timeopt"][0]["launches"]["rollout_time1"],
+            "timeopt"),
+        riccati_row,
+        *[row("riccati", "riccati.cu", ric_src, kv[f"riccati {w}"],
+              e2e[path][0]["launches"]["riccati"], path,
+              width=f"{w} ({path})")
+          for w, path in (("7x12", "sequential_h600_recursive"),
+                          ("7x13", "hybrid_h500_recursive"),
+                          ("3x2", "planar2d_recursive"))]],
         "phase_s": phase_s, "total_s": time.time() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -18,8 +18,10 @@
 // and writes K, d. The sums run in the order of the plain twin
 // (riccati_backward_reference), so float64 differs from it by rounding only.
 // A step whose precision is all zero is not skipped: a residual at every step
-// is this kernel's contract. Widths: any chain n with nq = 6 (posorn), n
-// (joint) and 3 (point), float32 and float64, one library a width.
+// is this kernel's contract. Widths: any chain n and any residual width nq
+// (6 posorn, n joint, 3 point, 2 planar point, and the sums of a sequential
+// spec's subsystems, up to the wrapper's MAX_NQ), float32 and float64, one
+// library a width.
 //
 // What bounds it on the H100: by its bytes, memory (each step streams
 // nq n + nq + 3 n values in and n n + n out a lane, about 0.5 KB in float32,
@@ -103,7 +105,8 @@
 namespace {
 
 // The width: n (the chain's DoF) and nq (the residual: 6 position +
-// orientation, n joint, 3 point), one library a width, built at first use.
+// orientation, n joint, 3 point, 2 planar point, or a sequential spec's sum
+// of them), one library a width, built at first use.
 #if !defined(RICCATI_N) || !defined(RICCATI_NQ)
 #error "build with -DRICCATI_N=<n> -DRICCATI_NQ=<nq>"
 #endif

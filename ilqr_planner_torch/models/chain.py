@@ -17,7 +17,8 @@ import torch
 from ilqr_planner_torch.models.kinstate import KinState
 from ilqr_planner_torch.ops import so3
 
-__all__ = ["KinematicChain", "chain_fk", "chain_jacobian", "chain_kin"]
+__all__ = ["KinematicChain", "chain_fk", "chain_jacobian", "chain_kin",
+           "jacobian_derivative"]
 
 
 @dataclasses.dataclass
@@ -92,10 +93,39 @@ def chain_jacobian(chain: KinematicChain, q):
     return p_ee, R_ee, J
 
 
-def chain_kin(chain: KinematicChain, q, dq) -> KinState:
-    """Kinematic state at (q, dq). `dJ` stays None: `jacobian_derivative`
-    belongs to ROADMAP slice 2 (S2.4)."""
+def jacobian_derivative(J, dq):
+    """dJ/dt [..., 6, dof] of the geometric Jacobian J [..., 6, dof] along
+    dq [..., dof], from its cross-product structure. For column i and
+    joint j:
+      j <  i: dJv_i/dq_j = Jw_j x Jv_i,  dJw_i/dq_j = Jw_j x Jw_i
+      j == i: dJv_i/dq_i = Jw_i x Jv_i,  dJw_i/dq_i = 0
+      j >  i: dJv_i/dq_j = Jw_i x Jv_j,  dJw_i/dq_j = 0
+    A prismatic column has Jw = 0, which zeroes exactly the terms that must
+    vanish, so the formulas hold for prismatic joints too."""
+    dof = J.shape[-1]
+    Jv = J[..., :3, :].transpose(-1, -2)  # [..., dof, 3] columns
+    Jw = J[..., 3:, :].transpose(-1, -2)
+    cross = torch.linalg.cross
+    # pairwise cross products, [..., j, i, 3]
+    lin_le = cross(Jw[..., :, None, :], Jv[..., None, :, :], dim=-1)
+    ang_lt = cross(Jw[..., :, None, :], Jw[..., None, :, :], dim=-1)
+    lin_gt = cross(Jw[..., None, :, :], Jv[..., :, None, :], dim=-1)
+    idx = torch.arange(dof, device=J.device)
+    le = (idx[:, None] <= idx[None, :])[..., None]
+    lt = (idx[:, None] < idx[None, :])[..., None]
+    lin = torch.where(le, lin_le, lin_gt)
+    ang = torch.where(lt, ang_lt, torch.zeros_like(ang_lt))
+    dJv = torch.einsum("...jic,...j->...ci", lin, dq)
+    dJw = torch.einsum("...jic,...j->...ci", ang, dq)
+    return torch.cat([dJv, dJw], dim=-2)
+
+
+def chain_kin(chain: KinematicChain, q, dq, with_dJ: bool = True) -> KinState:
+    """Full kinematic state at (q, dq); `with_dJ=False` leaves dJ None (the
+    system functions never read it, and it costs dof^2 cross products a
+    state)."""
     p_ee, R_ee, J = chain_jacobian(chain, q)
     dx = (J[..., :3, :] @ dq[..., None])[..., 0]
     w = (J[..., 3:, :] @ dq[..., None])[..., 0]
-    return KinState(x=p_ee, dx=dx, quat=so3.mat_to_quat(R_ee), w=w, J=J)
+    return KinState(x=p_ee, dx=dx, quat=so3.mat_to_quat(R_ee), w=w, J=J,
+                    dJ=jacobian_derivative(J, dq) if with_dJ else None)

@@ -25,8 +25,9 @@ taken (the TPU kernel's multiple-of-128 lane tiles are not carried over).
   -> K [B, H-1, n, n], d [B, H-1, n]
 
 `riccati_backward` runs the twin for CPU tensors and the kernel for CUDA
-tensors (any chain n up to `MAX_N`, with nq = 6, n or 3: the posorn, joint
-and point kinds; float32 or float64); it never falls back from one to the
+tensors (any chain n up to `MAX_N` and any residual width nq up to
+`MAX_NQ`: 6 posorn, n joint, 3 point, 2 planar point, and their sums in a
+sequential spec; float32 or float64); it never falls back from one to the
 other, and a width the source cannot take raises before any build. Each
 width is its own library, built at first use. The kernel
 runs n + 1 threads a scenario lane (a thread a column of the system, one for
@@ -42,7 +43,7 @@ import torch
 from ilqr_planner_torch.ops.cuda_kernels import nvcc_build
 
 __all__ = ["riccati_backward", "riccati_backward_reference", "build",
-           "LAUNCHES", "MAX_N", "residual_widths", "launch_geometry",
+           "LAUNCHES", "MAX_N", "MAX_NQ", "residual_widths", "launch_geometry",
            "kernel_geometry"]
 
 # Kernel launches so far: one per CUDA call of `riccati_backward`.
@@ -52,7 +53,6 @@ LAUNCHES = 0
 # max(6, n)) and whose every width up to it builds without a register spill
 # (`python3 tools/width_scan.py`, on the card).
 MAX_N = {torch.float32: 11, torch.float64: 7}
-
 # The launch constants of `csrc/riccati.cu`: lanes a block, steps a staged
 # chunk of inputs (a lane runs n + 1 threads).
 LANES_PER_BLOCK = 32
@@ -132,8 +132,9 @@ def riccati_backward_reference(J, e, ld, lq, u, prec, Rt, dt, reg=1e-6):
 # ---------------------------------------------------------------------------
 
 def residual_widths(n):
-    """The residual widths nq of the kinds the kernel serves on a chain of
-    n joints: position + orientation, joint, point."""
+    """The residual widths nq of the single kinds on a chain of n joints:
+    position + orientation, joint, point. A sequential spec sums its
+    subsystems' widths; the kernel takes any nq up to `MAX_NQ`."""
     return (6, n, 3)
 
 
@@ -155,6 +156,26 @@ def launch_geometry(B, dtype, n, nq):
     lanes an SM). Needs no card."""
     return nvcc_build.launch_geometry(B, LANES_PER_BLOCK, n + 1,
                                       _smem_values(n, nq), torch.finfo(dtype).bits // 8)
+
+
+def _fit_nq(dtype):
+    """The widest residual nq whose block fits one H100 SM at the type's
+    widest chain `MAX_N` (the precisions are nq * nq values a step, so the
+    shared memory grows with nq; the threads do not)."""
+    nq = 0
+    while (launch_geometry(1, dtype, MAX_N[dtype], nq + 1)["smem_bytes"]
+           <= nvcc_build.SMEM_PER_BLOCK_MAX):
+        nq += 1
+    return nq
+
+
+# The widest residual nq the source takes, by type: the block's fit at
+# MAX_N (float32 45, float64 35), so every nq up to it fits at every n up
+# to MAX_N. No spill-free limit exists: ptxas spills at scattered widths
+# from nq = 8 on (`python3 tools/width_scan.py riccati_nq`, on the card,
+# builds every width up to the limit and times a spill), a cost in time,
+# not in the result.
+MAX_NQ = {dtype: _fit_nq(dtype) for dtype in MAX_N}
 
 
 def _defines(n, nq):
@@ -189,10 +210,10 @@ def _check(J, e, ld, lq, u, prec):
     B, H, nq, n = J.shape
     if J.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"riccati kernel takes float32/float64, got {J.dtype}")
-    if nq not in residual_widths(n):
+    if not 1 <= nq <= MAX_NQ[J.dtype]:
         raise ValueError(
-            f"riccati kernel takes the residual widths nq = 6, n or 3 (the "
-            f"posorn, joint and point kinds); got n={n}, nq={nq}")
+            f"riccati kernel takes residual widths 1 <= nq <= "
+            f"{MAX_NQ[J.dtype]} in {J.dtype}; got nq={nq}")
     if not 1 <= n <= MAX_N[J.dtype]:
         raise ValueError(
             f"riccati kernel takes chains of n <= {MAX_N[J.dtype]} joints in "
@@ -224,7 +245,8 @@ def riccati_backward(J, e, ld, lq, u, prec, Rt, dt, reg=1e-6):
     """Structured backward sweep -> (K [B, H-1, n, n], d [B, H-1, n]);
     arguments as `riccati_backward_reference`. CPU tensors run the twin;
     CUDA tensors launch the kernel on the current stream (n up to `MAX_N`,
-    nq = 6, n or 3, float32 or float64, any B). A horizon H < 2 raises."""
+    nq up to `MAX_NQ`, float32 or float64, any B). A horizon H < 2
+    raises."""
     global LAUNCHES
     if J.dim() != 4 or J.shape[1] < 2:
         raise ValueError(f"riccati_backward needs J [B, H, nq, n] with a "

@@ -1,5 +1,6 @@
 """Scenario batching."""
 
-from ilqr_planner_torch.parallel.mesh import solve_batch
+from ilqr_planner_torch.parallel.mesh import (batch_specs, solve_batch,
+                                              solve_batch_staged)
 
-__all__ = ["solve_batch"]
+__all__ = ["batch_specs", "solve_batch", "solve_batch_staged"]

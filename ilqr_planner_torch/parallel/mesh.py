@@ -1,15 +1,20 @@
 """Scenario batching: one call solves a batch of problems on one device.
 
-PyTorch counterpart of `solve_batch` in the JAX package's `parallel/mesh.py`.
-A spec in the fleet's scope goes to the lane-major fleet solver
-(`solvers/fleet.py`); built solvers are memoized by the spec's content in a
-32-entry LRU. `prefer_fleet=False`, and any spec the fleet does not take, go
-to the recursive solver run over the batch (`solvers/ilqr.py::_solve_impl`,
-the counterpart of the JAX package's vmap over its single-problem solve).
-Keypoint overrides and `record=True` are ROADMAP S2.5's open part, and raise
-until then.
+PyTorch counterpart of `solve_batch`, `solve_batch_staged` and `batch_specs`
+in the JAX package's `parallel/mesh.py`. A spec in the fleet's scope whose
+per-scenario leaves are the initial state and the fleet's keypoint
+overrides (`FLEET_OVERRIDES`) goes to the lane-major fleet solver
+(`solvers/fleet.py`); built solvers are memoized by the spec's content, the
+override names and `record` in a 32-entry LRU. `prefer_fleet=False`, and
+any other spec, go to the recursive solver run over the batch
+(`solvers/ilqr.py::_solve_impl`, the counterpart of the JAX package's vmap
+over its single-problem solve), with the overridden leaves batched on the
+spec (`batch_specs`). The route follows from the spec, the override names
+and `prefer_fleet` alone: an error in the fleet raises, it is never
+answered by the other solver.
 """
 
+import dataclasses
 import hashlib
 from collections import OrderedDict
 from typing import Dict
@@ -17,12 +22,39 @@ from typing import Dict
 import torch
 
 from ilqr_planner_torch.solvers import ilqr
-from ilqr_planner_torch.solvers.fleet import fleet_supported, make_fleet_solver
-from ilqr_planner_torch.systems.spec import Spec
+from ilqr_planner_torch.solvers.fleet import (FLEET_OVERRIDES, fleet_supported,
+                                              make_fleet_solver)
+from ilqr_planner_torch.systems.spec import Spec, split_overrides
 
-__all__ = ["solve_batch"]
+__all__ = ["solve_batch", "solve_batch_staged", "batch_specs"]
 
-_LATER = "is not ported yet (ROADMAP S2.5)"
+_INITIAL = ("q0", "x0")
+
+
+def batch_specs(spec: Spec, overrides: Dict[str, torch.Tensor]) -> Spec:
+    """The spec with its per-scenario keypoint leaves attached: each
+    override of FLEET_OVERRIDES (an array with a leading scenario axis)
+    replaces that leaf, which then carries the scenario axis in front. For
+    a sequential spec an override is a list with one entry a subsystem
+    (None keeps that subsystem's leaf). The initial state ('x0', 'q0')
+    travels beside the spec, not on it. Other leaves raise."""
+    names = set(overrides) - set(_INITIAL)
+    extra = sorted(names - set(FLEET_OVERRIDES))
+    if extra:
+        raise NotImplementedError(
+            f"per-scenario overrides of {extra} are not ported (the port takes "
+            f"{list(_INITIAL + FLEET_OVERRIDES)})")
+
+    def leaf(v):
+        return torch.as_tensor(v, dtype=spec.dtype, device=spec.device)
+
+    parts = split_overrides(spec.kind, len(spec.subs),
+                            {k: overrides[k] for k in names})
+    if spec.kind != "sequential":
+        return dataclasses.replace(spec, **{k: leaf(v) for k, v in parts[0].items()})
+    return dataclasses.replace(spec, subs=tuple(
+        dataclasses.replace(sub, **{k: leaf(v) for k, v in part.items()})
+        for sub, part in zip(spec.subs, parts)))
 
 
 def _fleet_x0s(spec: Spec, overrides, U0s):
@@ -70,9 +102,21 @@ def _spec_fingerprint(spec: Spec):
         h.update(str(a.dtype).encode())
         h.update(str(a.shape).encode())
         h.update(a.tobytes())
+    robots = [s.robot.kind if s.robot is not None else None
+              for s in (spec.subs or (spec,))]
     static = (spec.kind, spec.nb_deriv, spec.horizon, spec.limits_set,
-              spec.robot.kind, str(spec.device))
+              tuple(robots), str(spec.device))
     return static, h.hexdigest()
+
+
+def _fleet_dispatch(spec: Spec, overrides) -> tuple:
+    """(use_fleet, ov_names): the fleet takes the spec when it is in its
+    scope and every override is the initial state or one of the keypoint
+    leaves it binds to lanes."""
+    ov_names = tuple(sorted(set(overrides) - set(_INITIAL)))
+    if not set(ov_names) <= set(FLEET_OVERRIDES):
+        return False, ()
+    return fleet_supported(spec), ov_names
 
 
 def solve_batch(spec: Spec, overrides: Dict[str, torch.Tensor], U0s,
@@ -81,34 +125,86 @@ def solve_batch(spec: Spec, overrides: Dict[str, torch.Tensor], U0s,
     """Solve a scenario batch of recursive-iLQR problems on the spec's device.
 
     U0s: [B, H-1, nu]. overrides: per-scenario Spec leaves with a leading
-    axis B; only the initial state ('x0', or 'q0' when no 'x0' is given) is
-    taken so far. Returns an ILQRResult with a leading scenario axis.
+    axis B: the initial state ('x0', or 'q0' when no 'x0' is given) and the
+    keypoint leaves 'mu', 'prec', 'pos_radius', 'orn_thresh' (for a
+    sequential spec, lists with one entry a subsystem, None keeping that
+    subsystem's leaf). Returns an ILQRResult with a leading scenario axis;
+    `record=True` adds `progress`, each lane's {"cost", "alpha"}
+    [B, nb_iter] at each of its iterations, NaN beyond its last.
 
     A spec in the fleet's scope runs the lane-major fleet solver; the two
     paths agree to rounding. `prefer_fleet=False` forces the recursive
     solver (`solvers.ilqr`), which also takes every spec the fleet does not.
-    The route follows from the spec and `prefer_fleet` alone: an error in the
-    fleet's dispatch or solve propagates, it is never answered by the other
-    solver.
     """
-    if record:
-        raise NotImplementedError(f"record=True {_LATER}")
-    extra = tuple(sorted(set(overrides) - {"q0", "x0"}))
-    if extra:
-        raise NotImplementedError(f"keypoint overrides {extra} {_LATER}")
     U0s = torch.as_tensor(U0s, dtype=spec.dtype, device=spec.device)
     if U0s.dim() != 3 or tuple(U0s.shape[1:]) != (spec.horizon - 1, spec.nu):
         raise ValueError(f"U0s must be [B, {spec.horizon - 1}, {spec.nu}], got "
                          f"{tuple(U0s.shape)}")
     x0s = _fleet_x0s(spec, overrides, U0s)
-    if not (prefer_fleet and fleet_supported(spec)):
-        return ilqr._solve_impl(spec, x0s, U0s, int(nb_iter),
-                                bool(line_search), bool(early_stop))
+    use, ov_names = (_fleet_dispatch(spec, overrides) if prefer_fleet
+                     else (False, ()))
+    if not use:
+        return ilqr._solve_impl(batch_specs(spec, overrides), x0s, U0s,
+                                int(nb_iter), bool(line_search),
+                                bool(early_stop), bool(record))
     key = (_spec_fingerprint(spec), int(nb_iter), bool(line_search),
-           bool(early_stop))
+           bool(early_stop), ov_names, bool(record))
     solver = _fleet_cache_get(key)
     if solver is None:
         solver = make_fleet_solver(spec, int(nb_iter), bool(line_search),
-                                   bool(early_stop))
+                                   bool(early_stop), overrides=ov_names,
+                                   record=bool(record))
         _fleet_cache_put(key, solver)
+    if ov_names:
+        return solver(x0s, U0s, {k: overrides[k] for k in ov_names})
     return solver(x0s, U0s)
+
+
+def _gather(tree, idx):
+    """Every tensor of a (nested list / dict) tree at the rows idx of its
+    leading axis; None entries pass through."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _gather(v, idx) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_gather(v, idx) for v in tree)
+    return torch.as_tensor(tree, device=idx.device)[idx]
+
+
+def solve_batch_staged(spec: Spec, overrides, U0s, nb_iter: int,
+                       first_stage: int = 6, bucket: int = 512, **kw):
+    """Straggler-aware batch solve with the results of
+    solve_batch(..., nb_iter): every lane runs `first_stage` iterations;
+    the lanes that used all of them are gathered (padded to a multiple of
+    `bucket` with copies of the first) and solved again from their initial
+    state with the full budget, and their results are scattered back. A
+    lane's solve does not depend on the other lanes, and a lane that stopped
+    early stops at the same iteration under any budget, so the result is
+    the plain solve's. record=True raises: the two stages' progress buffers
+    have different lengths."""
+    if kw.get("record"):
+        raise ValueError(
+            "record=True is not supported by the staged schedule (the two "
+            "stages' progress buffers have different lengths); use "
+            "solve_batch(record=True)")
+    first_stage = min(int(first_stage), int(nb_iter))
+    res1 = solve_batch(spec, overrides, U0s, first_stage, **kw)
+    idx = torch.nonzero(res1.iterations >= first_stage).flatten()
+    if idx.numel() == 0 or first_stage >= nb_iter:
+        return res1
+    pad = (-idx.numel()) % bucket
+    idx_p = torch.cat([idx, idx[:1].expand(pad)]).to(spec.device)
+    ov2, U0_2 = _gather((dict(overrides), U0s), idx_p)
+    res2 = solve_batch(spec, ov2, U0_2, nb_iter, **kw)
+    keep = idx.numel()
+    out = {}
+    for f in dataclasses.fields(res1):
+        a, b = getattr(res1, f.name), getattr(res2, f.name)
+        if a is None:
+            out[f.name] = None
+            continue
+        a = a.clone()
+        a[idx.to(a.device)] = b[:keep]
+        out[f.name] = a
+    return type(res1)(**out)

@@ -21,10 +21,14 @@ closed-loop rollout of theirs, the initial one included, is one launch of
 by one (early stop alpha sqrt(sum ||du||) < 1e-3 and cost < 1e-3, or the
 iteration budget); the loop ends when every lane is frozen.
 
-Scope: kinds 'posorn', 'joint', 'point' at nb_deriv 1 and 2 and
-'posorn_time', 'joint_time' at nb_deriv 1, on a chain robot without an
-object frame, no per-scenario keypoint overrides. The rest is ROADMAP
-Queue 1 items 8-9 and slice 2.
+Scope (`fleet_supported`): kinds 'posorn', 'joint', 'point' at nb_deriv 1
+and 2 and 'posorn_time', 'joint_time' at nb_deriv 1, on a chain robot with
+or without an object frame ('point' also on a planar robot), and
+sequential specs of them. Subsystems on one robot share one FK walk, each
+applying its own frame. Per-scenario keypoint overrides (`FLEET_OVERRIDES`)
+are bound to lanes once a solve (`_bind_ov`): only the keypoint steps are
+gathered, the scenario axis moved last. The time-optimal kinds at nb_deriv
+2 are ROADMAP Queue 1 item 3, AL-iLQR item 4.
 """
 
 import math
@@ -32,14 +36,19 @@ import math
 import numpy as np
 import torch
 
+from ilqr_planner_torch.models.planar import FD_STEP
 from ilqr_planner_torch.ops.cuda_kernels.rollout_time1 import rollout_time1
 from ilqr_planner_torch.ops.cuda_kernels.segment_backward import segment_backward
 from ilqr_planner_torch.ops.cuda_kernels.segment_backward_2nd import (
     segment_backward_2nd, segment_backward_time1)
 from ilqr_planner_torch.solvers.ilqr import ILQRResult
-from ilqr_planner_torch.systems.spec import Spec
+from ilqr_planner_torch.systems.spec import Spec, split_overrides
 
-__all__ = ["make_fleet_solver", "fleet_supported", "TRIALS"]
+__all__ = ["make_fleet_solver", "fleet_supported", "FLEET_OVERRIDES",
+           "TRIALS"]
+
+# Spec leaves the fleet takes per scenario (besides q0/x0).
+FLEET_OVERRIDES = ("mu", "prec", "pos_radius", "orn_thresh")
 
 _REG = 1e-6  # gain-elimination ridge
 
@@ -48,13 +57,27 @@ _REG = 1e-6  # gain-elimination ridge
 TRIALS = 0
 
 
+def _sub_ok(s: Spec) -> bool:
+    if s.kind in ("joint", "joint_time"):
+        return s.nb_deriv == 1 or (s.nb_deriv == 2 and s.kind == "joint")
+    if s.robot is None:
+        return False
+    if s.kind == "point":
+        return s.nb_deriv in (1, 2) and (
+            s.robot.kind == "chain"
+            or (s.robot.kind == "planar" and s.robot.frame is None))
+    if s.kind == "posorn":
+        return s.nb_deriv in (1, 2) and s.robot.kind == "chain"
+    if s.kind == "posorn_time":
+        return s.nb_deriv == 1 and s.robot.kind == "chain"
+    return False
+
+
 def fleet_supported(spec: Spec) -> bool:
     """True when this spec is in the port's fleet scope."""
-    if spec.robot is None or spec.robot.kind != "chain" or spec.robot.frame is not None:
-        return False
-    if spec.kind in ("posorn", "joint", "point"):
-        return spec.nb_deriv in (1, 2)
-    return spec.kind in ("posorn_time", "joint_time") and spec.nb_deriv == 1
+    if spec.kind == "sequential":
+        return bool(spec.subs) and all(_sub_ok(s) for s in spec.subs)
+    return _sub_ok(spec)
 
 
 # ---------------------------------------------------------------------------
@@ -62,9 +85,10 @@ def fleet_supported(spec: Spec) -> bool:
 # ---------------------------------------------------------------------------
 
 class _SubC:
-    """Constants of one system, as tensors in the spec's dtype and device."""
+    """Constants of one system (a subsystem of a sequential spec), as
+    tensors in the spec's dtype and device."""
 
-    def __init__(self, spec: Spec):
+    def __init__(self, spec: Spec, ov_names=()):
         self.kind = spec.kind
         self.nb_deriv = spec.nb_deriv
         self.time = spec.time_optimal
@@ -72,7 +96,7 @@ class _SubC:
         self.dof = spec.dof
         self.nt = spec.nt
         self.nq = spec.nq_var
-        self.car_dim = spec.robot.nb_car_dim
+        self.ov_names = tuple(ov_names)
         np_dtype = np.dtype(str(spec.dtype).removeprefix("torch."))
         dev = spec.device
 
@@ -89,21 +113,23 @@ class _SubC:
             self.smin = t(f(spec.state_min))
             self.weight = t(f(spec.limit_weight))
             self.penalty = float(f(spec.penalty))
-        ch = spec.robot.chain
-        self.origin_rot = t(f(ch.origin_rot))
-        self.origin_pos = t(f(ch.origin_pos))
-        self.axis = t(f(ch.axis))
-        self.prismatic = [bool(v > 0) for v in f(ch.prismatic)]
-        self.tip_rot = t(f(ch.tip_rot))
-        self.tip_pos = t(f(ch.tip_pos))
-        # Rodrigues constants per joint: K = [axis]x and K @ K, in float64
-        # on the host, then rounded once to the working dtype
-        self.skew, self.skew2 = [], []
-        for a in f(ch.axis).astype(np.float64):
-            K = np.array([[0.0, -a[2], a[1]], [a[2], 0.0, -a[0]],
-                          [-a[1], a[0], 0.0]])
-            self.skew.append(t(K)[:, :, None])
-            self.skew2.append(t(K @ K)[:, :, None])
+        # the robot: a chain or planar key (subsystems on one robot share a
+        # walk) and the object frame as (R^T, origin [3, 1])
+        self.chain_key = self.frame = None
+        self.planar = False
+        if not self.kind.startswith("joint"):
+            self.car_dim = spec.robot.nb_car_dim
+            if spec.robot.kind == "planar":
+                self.planar = True
+                lengths = [float(v) for v in f(spec.robot.planar.lengths)]
+                self.lengths = t(lengths)[:, None]
+                self.lengths_over_h = t([v / FD_STEP for v in lengths])[:, None]
+                self.chain_key = ("planar", tuple(lengths))
+            else:
+                self._chain_consts(spec.robot.chain, f, t)
+                if spec.robot.frame is not None:
+                    T = spec.robot.frame.detach().cpu().numpy().astype(np.float64)
+                    self.frame = (t(T[:3, :3].T), t(T[:3, 3])[:, None])
 
         mask = f(spec.kp_mask) != 0
         mu, prec = f(spec.mu), f(spec.prec)
@@ -127,17 +153,45 @@ class _SubC:
             self.kp.append(kp)
         self.kp_steps = tuple(d["k"] for d in self.kp)
 
+    def _chain_consts(self, ch, f, t):
+        self.origin_rot = t(f(ch.origin_rot))
+        self.origin_pos = t(f(ch.origin_pos))
+        self.axis = t(f(ch.axis))
+        self.prismatic = [bool(v > 0) for v in f(ch.prismatic)]
+        self.tip_rot = t(f(ch.tip_rot))
+        self.tip_pos = t(f(ch.tip_pos))
+        # Rodrigues constants per joint: K = [axis]x and K @ K, in float64
+        # on the host, then rounded once to the working dtype
+        self.skew, self.skew2 = [], []
+        for a in f(ch.axis).astype(np.float64):
+            K = np.array([[0.0, -a[2], a[1]], [a[2], 0.0, -a[0]],
+                          [-a[1], a[0], 0.0]])
+            self.skew.append(t(K)[:, :, None])
+            self.skew2.append(t(K @ K)[:, :, None])
+        self.chain_key = tuple(f(getattr(ch, name)).tobytes() for name in (
+            "origin_rot", "origin_pos", "axis", "prismatic", "tip_rot",
+            "tip_pos"))
+
 
 class _Consts:
     """Problem constants of a fleet solve."""
 
-    def __init__(self, spec: Spec):
-        if not fleet_supported(spec):
+    def __init__(self, spec: Spec, ov_names=()):
+        if spec.time_optimal and spec.nb_deriv == 2:
             raise NotImplementedError(
+                "the fleet's time-optimal double integrator is not ported yet "
+                "(ROADMAP Queue 1 item 3)")
+        if not fleet_supported(spec):
+            raise ValueError(
                 f"fleet scope: posorn/joint/point at nb_deriv 1-2 and "
-                f"posorn_time/joint_time at nb_deriv 1, on a chain robot "
-                f"without object frame; got kind={spec.kind!r} "
-                f"nb_deriv={spec.nb_deriv} (ROADMAP Queue 1 items 8-9)")
+                f"posorn_time/joint_time at nb_deriv 1 (point also on a "
+                f"frameless planar robot), and sequential specs of them; got "
+                f"kind={spec.kind!r} nb_deriv={spec.nb_deriv}")
+        ov_names = tuple(ov_names)
+        bad = set(ov_names) - set(FLEET_OVERRIDES)
+        if bad:
+            raise ValueError(f"unsupported fleet overrides: {sorted(bad)}")
+        self.kind = spec.kind
         self.n = spec.nx
         self.m = spec.nu
         self.dof = spec.dof
@@ -149,8 +203,17 @@ class _Consts:
         np_dtype = np.dtype(str(spec.dtype).removeprefix("torch."))
         self.dt = None if self.time else float(np.asarray(spec.dt.cpu().numpy(),
                                                           np_dtype))
+        # the top-level Rt drives the sweep; each subsystem's own Rt enters
+        # the cost value at its keypoint steps
         self.Rt = [float(v) for v in np.asarray(spec.Rt.cpu().numpy(), np_dtype)]
-        self.subs = [_SubC(spec)]
+        subs = spec.subs if spec.kind == "sequential" else (spec,)
+        self.subs = [_SubC(s, ov_names) for s in subs]
+        self.ov_names = ov_names
+        # one FK walk per robot, shared by the subsystems on it
+        keys = {}
+        self.chain_of = [None if sc.chain_key is None
+                         else keys.setdefault(sc.chain_key, sc)
+                         for sc in self.subs]
         steps = sorted({k for sc in self.subs for k in sc.kp_steps})
         self.kp_steps = tuple(steps)
         self.kp_at = {k: [(i, d) for i, sc in enumerate(self.subs)
@@ -304,30 +367,136 @@ def _mat_to_quat_soa(R):
     return q / torch.sqrt((q * q).sum(0))
 
 
+def _apply_frame(frame, p, R, J):
+    """Express the world EE pose (p [3, B], R [3, 3, B]) and Jacobian (J
+    [6, dof, B] or None) in an object frame (R_f^T, p_f): p' = R_f^T (p -
+    p_f), R' = R_f^T R, J' = blockdiag(R_f^T, R_f^T) J."""
+    RfT, pf = frame
+    p2 = _mv(RfT, p - pf)
+    R2 = _mm(RfT, R)
+    if J is not None:
+        J = torch.cat([_mm(RfT, J[:3]), _mm(RfT, J[3:])])
+    return p2, R2, J
+
+
+def _planar_walk(sc: _SubC, q, want_jac):
+    """Planar FK over lanes, q [dof, B] -> (p [3, B] with a zero third row,
+    None, J6 [6, dof, B] or None): x = sum_i l_i [cos q_i, sin q_i], and the
+    reference's forward-difference Jacobian with step pi * 1e-3. Joint i
+    enters column i alone, so the column is l_i (cos(q_i + h) - cos q_i) / h
+    (the difference of the full FK, with fewer operations); the rotational
+    rows are zeros."""
+    cos_q, sin_q = torch.cos(q), torch.sin(q)
+    x = (sc.lengths * cos_q).sum(0)
+    y = (sc.lengths * sin_q).sum(0)
+    p = torch.stack([x, y, torch.zeros_like(x)])
+    J6 = None
+    if want_jac:
+        J6 = q.new_zeros((6,) + tuple(q.shape))
+        J6[0] = sc.lengths_over_h * (torch.cos(q + FD_STEP) - cos_q)
+        J6[1] = sc.lengths_over_h * (torch.sin(q + FD_STEP) - sin_q)
+    return p, None, J6
+
+
 def _fk_subs(cc: _Consts, x, want_jac, want_vel=False):
-    """Per-system kinematics at state x [n, B]: None for the joint kinds,
-    else {"p", "quat" (posorn), "J6" (when want_jac or want_vel), "dp", "w",
-    "dquat" (posorn) (when want_vel: J_v dq, J_w dq and the quaternion
-    rate, dq the velocity block of a double-integrator state)}."""
-    out = []
-    for sc in cc.subs:
-        if sc.kind.startswith("joint"):
+    """Per-system kinematics at state x [n, B], in each system's object
+    frame: None for the joint kinds, else {"p", "quat" (posorn), "J6" (when
+    want_jac or want_vel), "dp", "w", "dquat" (posorn) (when want_vel: J_v
+    dq, J_w dq and the quaternion rate, dq the velocity block of a
+    double-integrator state)}. One world walk a robot, shared by the
+    systems on it."""
+    q = x[:cc.dof]
+    jac = want_jac or want_vel
+    walks, out = {}, []
+    for sc, rep in zip(cc.subs, cc.chain_of):
+        if rep is None:
             out.append(None)
             continue
-        p, R, zs, os_ = _fk_walk(sc, x[:cc.dof])
-        p_ee, R_ee = _walk_tip(sc, p, R)
-        d = {"p": p_ee}
-        if want_jac or want_vel:
-            d["J6"] = _walk_jac(sc, zs, os_, p_ee)
+        if sc.chain_key not in walks:
+            if rep.planar:
+                walks[sc.chain_key] = _planar_walk(rep, q, jac)
+            else:
+                p, R, zs, os_ = _fk_walk(rep, q)
+                p_ee, R_ee = _walk_tip(rep, p, R)
+                walks[sc.chain_key] = (p_ee, R_ee, _walk_jac(rep, zs, os_, p_ee)
+                                       if jac else None)
+        p, R, J = walks[sc.chain_key]
+        if sc.frame is not None:
+            p, R, J = _apply_frame(sc.frame, p, R, J)
+        d = {"p": p}
+        if jac:
+            d["J6"] = J
         if sc.kind.startswith("posorn"):
-            d["quat"] = _mat_to_quat_soa(R_ee)
+            d["quat"] = _mat_to_quat_soa(R)
         if want_vel:
             dq = x[cc.dof:2 * cc.dof]
-            d["dp"] = (d["J6"][:3] * dq[None]).sum(1)
-            d["w"] = (d["J6"][3:] * dq[None]).sum(1)
+            d["dp"] = (J[:3] * dq[None]).sum(1)
+            d["w"] = (J[3:] * dq[None]).sum(1)
             if sc.kind.startswith("posorn"):
                 d["dquat"] = _quat_rate(d["quat"], d["w"])
         out.append(d)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# per-scenario overrides, bound to lanes once a solve
+# ---------------------------------------------------------------------------
+
+def _bind_ov(cc: _Consts, ov):
+    """The override arrays (a leading scenario axis: mu [B, H, nt], prec
+    [B, H, nq, nq], pos_radius [B, H], orn_thresh [B, H, 3]; for a
+    sequential spec a list with one entry a subsystem, None keeping that
+    subsystem's constants) -> the keypoint table `kp_at` with each
+    overridden keypoint's constants bound to lanes (mu [nt, B], prec
+    [nq, nq, B], radius [B], thresh [3, B]; a target quaternion's E and
+    unit operand recomputed from its lanes). Only the keypoint steps are
+    gathered, and the scenario axis is moved last once."""
+    if not cc.ov_names:
+        return cc.kp_at
+    missing = [k for k in cc.ov_names if k not in (ov or {})]
+    if missing:
+        raise ValueError(f"missing override arrays: {missing}")
+    parts = split_overrides(cc.kind, len(cc.subs),
+                            {k: ov[k] for k in cc.ov_names})
+    bound = []
+    for sc, part in zip(cc.subs, parts):
+        lanes = {}
+        for name, v in part.items():
+            v = torch.as_tensor(v, dtype=cc.dtype, device=cc.device)
+            want = {"mu": (cc.H, sc.nt), "prec": (cc.H, sc.nq, sc.nq),
+                    "pos_radius": (cc.H,), "orn_thresh": (cc.H, 3)}[name]
+            if tuple(v.shape[1:]) != want:
+                raise ValueError(f"override {name!r} must be [B, "
+                                 f"{', '.join(map(str, want))}], got "
+                                 f"{tuple(v.shape)}")
+            steps = torch.tensor(sc.kp_steps, dtype=torch.long, device=cc.device)
+            lanes[name] = v[:, steps].movedim(0, -1).contiguous()   # [K, .., B]
+        bound.append([_bind_kp(sc, kp, j, lanes) for j, kp in enumerate(sc.kp)])
+    return {k: [(i, bound[i][j]) for i, sc in enumerate(cc.subs)
+                for j, d in enumerate(sc.kp) if d["k"] == k]
+            for k in cc.kp_steps}
+
+
+def _bind_kp(sc: _SubC, kp: dict, j: int, lanes: dict) -> dict:
+    """Keypoint j of a system with its overridden constants taken from the
+    lane tensors (each [K, .., B], K the system's keypoints)."""
+    if not lanes:
+        return kp
+    out = dict(kp)
+    if "mu" in lanes:
+        out["mu"] = lanes["mu"][j]
+        if sc.kind.startswith("posorn"):
+            # E(q*) from the RAW target quaternion, the log-map base its
+            # unit lanes
+            q_t = out["mu"][sc.car_dim:sc.car_dim + 4]
+            out["q"] = _q_lanes(q_t)
+            out["E"] = _dquat_jac(q_t)
+    if "prec" in lanes:
+        out["prec"] = lanes["prec"][j]
+    if "pos_radius" in lanes:
+        out["radius"] = lanes["pos_radius"][j]
+    if "orn_thresh" in lanes:
+        out["thresh"] = lanes["orn_thresh"][j]
     return out
 
 
@@ -338,20 +507,25 @@ def _fk_subs(cc: _Consts, x, want_jac, want_vel=False):
 def _posorn_residual_soa(sc: _SubC, kp: dict, fkd: dict):
     """Position + orientation residual [6(+6), B]: r_p = p* - p,
     r_o = -2 E(q*) logMap(q*, q), with the optional dead zones; second
-    order appends dp* - dp and -2 E(q*)(dq* - transport(dquat, q -> q*))."""
+    order appends dp* - dp and -2 E(q*)(dq* - transport(dquat, q -> q*)).
+    The keypoint's constants may be bound to lanes (`_bind_kp`)."""
     c = sc.car_dim
     mu = kp["mu"]
     quat = _q_lanes(fkd["quat"])
     r_p = mu[:c] - fkd["p"]
     r_o = -2.0 * _mv(kp["E"], _q_log_map(kp["q"], quat))
+    # the dead zones: skipped only where the radius or threshold is a
+    # constant zero, applied whenever an override binds it to lanes
     radius = kp["radius"]
-    if radius != 0.0:
+    if isinstance(radius, torch.Tensor) or radius != 0.0:
         nrm = torch.sqrt((r_p * r_p).sum(0))
         safe = torch.where(nrm == 0, torch.ones_like(nrm), nrm)
         r_p = torch.where(nrm <= radius, torch.zeros_like(r_p),
                           r_p / safe * (nrm - radius))
-    if any(v != 0.0 for v in kp["thresh"]):
-        th = torch.tensor(kp["thresh"], dtype=r_o.dtype, device=r_o.device)[:, None]
+    th = kp["thresh"]
+    if not isinstance(th, torch.Tensor) and any(v != 0.0 for v in th):
+        th = torch.tensor(th, dtype=r_o.dtype, device=r_o.device)[:, None]
+    if isinstance(th, torch.Tensor):
         r_o = torch.where(r_o.abs() <= th, torch.zeros_like(r_o),
                           r_o - torch.sign(r_o) * th)
     parts = [r_p, r_o]
@@ -397,11 +571,12 @@ def _kp_jac(sc: _SubC, fkd):
     return J
 
 
-def _kp_terms_at(cc: _Consts, k: int, x, want_grads: bool):
-    """(cost [B], gx [n, B], Gxx [n, n, B]) summed over the keypoints at
-    step k: cost = e^T P e, gx = J^T P e, Gxx = J^T P J. gx/Gxx are None
-    when want_grads is False."""
-    entries = cc.kp_at[k]
+def _kp_terms_at(cc: _Consts, k: int, x, want_grads: bool, kpa=None):
+    """(cost [B], gx [n, B], Gxx [n, n, B]) summed over the keypoints of
+    every system at step k: cost = e^T P e, gx = J^T P e, Gxx = J^T P J.
+    gx/Gxx are None when want_grads is False. `kpa` is the keypoint table
+    with overrides bound (`_bind_ov`), `cc.kp_at` when None."""
+    entries = (cc.kp_at if kpa is None else kpa)[k]
     need_fk = any(not cc.subs[i].kind.startswith("joint") for i, _ in entries)
     want_vel = cc.nb_deriv == 2 and need_fk
     fkds = (_fk_subs(cc, x, want_grads, want_vel) if need_fk
@@ -417,7 +592,8 @@ def _kp_terms_at(cc: _Consts, k: int, x, want_grads: bool):
         if not want_grads:
             continue
         if sc.kind.startswith("joint"):      # J = I
-            gs, Gs = v, P[..., None].expand(-1, -1, e.shape[-1])
+            gs = v
+            Gs = P if P.dim() == 3 else P[..., None].expand(-1, -1, e.shape[-1])
         else:
             J = _kp_jac(sc, fkds[i])         # [nq, n, B]
             gs = (J * v[:, None]).sum(0)
@@ -469,21 +645,22 @@ def _limit_cost_full(cc: _Consts, X):
 # closed-loop rollout and the static keypoint-step costs
 # ---------------------------------------------------------------------------
 
-def _static_step_costs(cc: _Consts, X, U, cost):
+def _static_step_costs(cc: _Consts, X, U, cost, kpa=None):
     """Add the keypoint-residual and control-penalty costs at the keypoint
     steps to `cost` ([H, n, B], [H-1, m, B] -> [B]). The control penalty
-    enters the cost value only at keypoint steps."""
+    enters the cost value only at each system's keypoint steps, with that
+    system's Rt."""
     for k in cc.kp_steps:
         if k < cc.H - 1:
             for i_sub, _ in cc.kp_at[k]:
                 Rt = cc.subs[i_sub].Rt[:, None]
                 cost = cost + (Rt * U[k] * U[k]).sum(0)
-        kc, _, _ = _kp_terms_at(cc, k, X[k], False)
+        kc, _, _ = _kp_terms_at(cc, k, X[k], False, kpa)
         cost = cost + kc
     return cost
 
 
-def _rollout(cc: _Consts, alpha, Ks, ds, Xref, Uref, x0):
+def _rollout(cc: _Consts, alpha, Ks, ds, Xref, Uref, x0, kpa=None):
     """Closed-loop rollout u = uo + K (x - xo) + alpha d over all lanes ->
     (X [H, n, B], U [H-1, m, B], cost [B], sum_k ||du_k|| [B]).
 
@@ -509,7 +686,7 @@ def _rollout(cc: _Consts, alpha, Ks, ds, Xref, Uref, x0):
             else:
                 x = x + dt * u
             X[k + 1], U[k], du2[k] = x, u, (du * du).sum(0)
-    cost = _static_step_costs(cc, X, U, _limit_cost_full(cc, X))
+    cost = _static_step_costs(cc, X, U, _limit_cost_full(cc, X), kpa)
     return X, U, cost, torch.sqrt(du2).sum(0)
 
 
@@ -517,7 +694,7 @@ def _rollout(cc: _Consts, alpha, Ks, ds, Xref, Uref, x0):
 # backward sweep
 # ---------------------------------------------------------------------------
 
-def _backward(cc: _Consts, X, U):
+def _backward(cc: _Consts, X, U, kpa=None):
     """Full backward sweep -> (Ks [H-1, m, n, B], ds [H-1, m, B]).
 
     The limit quadratics stream as per-step diagonals; the keypoint
@@ -535,13 +712,13 @@ def _backward(cc: _Consts, X, U):
     P = eye * L2[H - 1][:, None]
     p = lx_all[H - 1]
     if (H - 1) in cc.kp_at:
-        _, gx, gxx = _kp_terms_at(cc, H - 1, X[H - 1], True)
+        _, gx, gxx = _kp_terms_at(cc, H - 1, X[H - 1], True, kpa)
         p = p - gx
         P = P + gxx
     inner = [k for k in cc.kp_steps if k < H - 1]
     lx = lx_all[:H - 1]
     if inner:
-        terms = [_kp_terms_at(cc, k, X[k], True) for k in inner]
+        terms = [_kp_terms_at(cc, k, X[k], True, kpa) for k in inner]
         lx = lx.clone()
         for k, (_, gx_k, _) in zip(inner, terms):
             lx[k] = lx[k] - gx_k
@@ -619,7 +796,7 @@ def _affine_family(cc: _Consts, Ks, ds, Xref, Uref, x0):
 
 
 def _run_trials_affine(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0,
-                       inactive):
+                       inactive, kpa=None):
     """Backtracking over alpha = 1, 1/2, ..., 2^-10 on the affine family:
     the first passing alpha is adopted per lane, the last trial on
     floor-out; the walk stops once every lane has accepted. Inactive lanes
@@ -635,7 +812,7 @@ def _run_trials_affine(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0,
                 uk = Ub[k] + a * Ud[k]
                 for i_sub, _ in cc.kp_at[k]:
                     cost = cost + (cc.subs[i_sub].Rt[:, None] * uk * uk).sum(0)
-            kc, _, _ = _kp_terms_at(cc, k, Xa[k], False)
+            kc, _, _ = _kp_terms_at(cc, k, Xa[k], False, kpa)
             cost = cost + kc
         # ||du_k(alpha)||^2 >= 0 exactly; clamp the rounding tail
         du = torch.sqrt(torch.clamp(qa + (2.0 * a) * qb + (a * a) * qc,
@@ -663,7 +840,8 @@ def _run_trials_affine(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0,
     return Xn, Un, cost, du_acc, alpha, n_trials
 
 
-def _run_trials(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0, inactive):
+def _run_trials(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0, inactive,
+                kpa=None):
     """Backtracking with one closed-loop rollout (`_rollout`) a trial, same
     decisions as `_run_trials_affine` (first passing alpha per lane, the
     last trial on floor-out, early exit once every lane has accepted); the
@@ -675,7 +853,7 @@ def _run_trials(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0, inactive):
     for a in a_sched:
         if bool(accepted.all()):
             break
-        Xt, Ut, ct, dut = _rollout(cc, a, Ks, ds, X, U, x0)
+        Xt, Ut, ct, dut = _rollout(cc, a, Ks, ds, X, U, x0, kpa)
         n_trials += 1
         ok = (ct < cost0) & ~torch.isnan(ct)
         take = ~accepted
@@ -719,55 +897,64 @@ def make_fleet_solver(spec: Spec, nb_iter: int, line_search: bool = True,
                       early_stop: bool = True, overrides=(),
                       backward: str = "auto", ls: str = "auto",
                       record: bool = False):
-    """Build a lane-major fleet solve: (x0s [B, n], U0s [B, H-1, nu]) ->
-    ILQRResult with a leading scenario axis, on the spec's device.
+    """Build a lane-major fleet solve: (x0s [B, n], U0s [B, H-1, nu][, ov])
+    -> ILQRResult with a leading scenario axis, on the spec's device.
 
+    overrides: names from FLEET_OVERRIDES that vary per scenario; the solve
+    then takes `ov`, a dict of arrays with a leading scenario axis (mu
+    [B, H, nt], prec [B, H, nQ, nQ], pos_radius [B, H], orn_thresh
+    [B, H, 3]; for a sequential spec a list with one entry a subsystem,
+    None keeping that subsystem's constants), bound to lanes once a solve.
+    record: `progress` holds each lane's {"cost", "alpha"} [B, nb_iter],
+    written at the lane's own iteration index, NaN beyond its last.
     backward: 'auto' only (the CUDA kernels on the card, their twins on the
     CPU). ls: 'auto' (the affine trials on the LTI kinds, re-rollouts on the
     time-optimal kinds), 'affine' or 'scan' to force ('affine' on a
-    time-optimal kind raises). Keypoint overrides and `record=True` are not
-    ported yet.
+    time-optimal kind raises).
     """
     if backward != "auto":
         raise ValueError(f"backward must be 'auto' in the port, got {backward!r}")
-    if tuple(overrides):
-        raise NotImplementedError(
-            f"keypoint overrides {tuple(overrides)} are not ported yet "
-            f"(ROADMAP slice 2)")
-    if record:
-        raise NotImplementedError("record=True is not ported yet (ROADMAP "
-                                  "slice 2)")
-    cc = _Consts(spec)
+    cc = _Consts(spec, overrides)
     use_affine = _pick_ls_mode(cc, ls)
     run_trials = _run_trials_affine if use_affine else _run_trials
     n, m, H = cc.n, cc.m, cc.H
     a_sched = _alpha_schedule(line_search)
 
-    def solve(x0s, U0s):
+    def solve(x0s, U0s, ov=None):
         global TRIALS
         x0 = torch.as_tensor(x0s, dtype=cc.dtype, device=cc.device).T.contiguous()
         U0 = torch.as_tensor(U0s, dtype=cc.dtype,
                              device=cc.device).permute(1, 2, 0).contiguous()
+        kpa = _bind_ov(cc, ov)
         B = x0.shape[-1]
         Ks = x0.new_zeros((H - 1, m, n, B))
         ds = x0.new_zeros((H - 1, m, B))
         X, U, cost, _ = _rollout(cc, 0.0, Ks, ds, x0.new_zeros((H, n, B)), U0,
-                                 x0)
+                                 x0, kpa)
         it = torch.zeros(B, dtype=torch.int32, device=cc.device)
         done = torch.zeros(B, dtype=torch.bool, device=cc.device)
         alpha = torch.ones_like(cost)
+        if record:
+            rec_cost = cost.new_full((nb_iter, B), float("nan"))
+            rec_alpha = rec_cost.clone()
+            rows = torch.arange(nb_iter, device=cc.device)[:, None]
         while True:
             active = ~done & (it < nb_iter)
             if not bool(active.any()):
                 break
-            Ks_n, ds_n = _backward(cc, X, U)
+            Ks_n, ds_n = _backward(cc, X, U, kpa)
             Xn, Un, costn, du_acc, alpha_n, n_trials = run_trials(
-                cc, a_sched, X, U, cost, Ks_n, ds_n, x0, ~active)
+                cc, a_sched, X, U, cost, Ks_n, ds_n, x0, ~active, kpa)
             TRIALS += n_trials
             new_done = done
             if early_stop:
                 new_done = done | ((alpha_n * torch.sqrt(du_acc) < 1e-3)
                                    & (costn < 1e-3))
+            if record:
+                # each active lane's row at its own iteration index
+                row = (rows == it[None]) & active[None]
+                rec_cost = torch.where(row, costn[None], rec_cost)
+                rec_alpha = torch.where(row, alpha_n[None], rec_alpha)
             X = torch.where(active, Xn, X)
             U = torch.where(active, Un, U)
             cost = torch.where(active, costn, cost)
@@ -785,6 +972,8 @@ def make_fleet_solver(spec: Spec, nb_iter: int, line_search: bool = True,
             cost=cost,
             iterations=it,
             alpha=alpha,
+            progress=({"cost": rec_cost.T, "alpha": rec_alpha.T}
+                      if record else None),
         )
 
     return solve

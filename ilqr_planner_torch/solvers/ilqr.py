@@ -13,11 +13,13 @@ Per iteration:
     integrators are kinematics-free, so the state recursion itself is a loop
     of H-1 cheap batched steps (`_integrate`);
   * the backward pass (`_backward`): for the structured first-order kinds
-    (nb_deriv 1, not time-optimal: A = I, B = dt I) the fused dense
-    quadratization + Riccati sweep `ops/cuda_kernels/riccati.py` (the CUDA
-    kernel for CUDA tensors, its plain twin on the CPU); for every other
-    kind the generic recursion `_backward_core` in plain tensor ops with
-    per-step A, B. The route follows from the spec alone;
+    (nb_deriv 1, not time-optimal: A = I, B = dt I, sequential specs of
+    them included) the fused dense quadratization + Riccati sweep
+    `ops/cuda_kernels/riccati.py` (the CUDA kernel for CUDA tensors, its
+    plain twin on the CPU), whose precisions are the same for every lane;
+    for every other kind, and for a per-scenario `prec`, the generic
+    recursion `_backward_core` in plain tensor ops with per-step A, B. The
+    route follows from the spec and its per-scenario leaves alone;
   * the backtracking line search: trials at alpha = 1, 1/2, ..., 2^-10, each
     a closed-loop rollout; each lane adopts its FIRST trial with a strictly
     lower, non-NaN cost, and the 2^-10 trial when none passes; the walk stops
@@ -28,10 +30,15 @@ Per iteration:
     `nb_iter`.
 
 Numerics held fixed: the Quu ridge 1e-6 and the leading minus sign of the
-gains. The result's `ds` is scaled by the accepted alpha.
+gains. The result's `ds` is scaled by the accepted alpha. `record=True`
+adds `progress`, each lane's {"cost", "alpha"} at each of its iterations,
+NaN beyond its last.
+
+Per-scenario keypoint leaves (mu, prec, pos_radius, orn_thresh) enter as
+spec leaves with a leading scenario axis (`parallel.mesh.batch_specs`).
 
 Not ported yet, each raising NotImplementedError: backward='pscan' (ROADMAP
-Queue 1 item 11); guard=, record= and callback= (item 15).
+Queue 1 item 11); guard= and callback= (item 15).
 """
 
 import dataclasses
@@ -140,11 +147,43 @@ def rollout(spec: Spec, alpha, Ks, ds, Xref, Uref, x0=None):
 # backward pass
 # ---------------------------------------------------------------------------
 
+def _lane_prec(spec: Spec) -> bool:
+    """True when the precisions carry a scenario axis (in a subsystem of a
+    sequential spec too)."""
+    specs = spec.subs if spec.kind == "sequential" else (spec,)
+    return any(s.prec.dim() > 3 for s in specs)
+
+
+def _riccati_route(spec: Spec) -> bool:
+    """The kinds the riccati kernel takes: first order, not time-optimal,
+    precisions the same for every lane."""
+    return (spec.nb_deriv == 1 and not spec.time_optimal
+            and not _lane_prec(spec))
+
+
+def _limit_diag(spec: Spec, X):
+    """(ld, lq) [B, H, nx] of the riccati kernel, which adds -ld lq to l_x
+    and ld^2 to the diagonal of l_xx: the limit terms of the one spec (or
+    subsystem) that sets limits, zeros where none does. Where several
+    subsystems set limits, ld = sqrt(sum L^2) and lq = (sum L q) / ld (0
+    where ld is 0): the summed terms to rounding."""
+    specs = spec.subs if spec.kind == "sequential" else (spec,)
+    limited = [s for s in specs if s.limits_set]
+    if not limited:
+        zero = torch.zeros_like(X)
+        return zero, zero
+    if len(limited) == 1:
+        return funcs.limit_terms(limited[0], X)
+    _, Lq, L2 = funcs._limit_triplet(spec, X)
+    ld = torch.sqrt(L2)
+    return ld, torch.where(ld > 0, Lq / torch.where(ld > 0, ld, 1.0), 0.0)
+
+
 def _host_consts(spec: Spec):
     """(Rt as a tuple of floats, dt as a float) for the riccati route, read
     from the device once per solve; None for the kinds that route does not
     take."""
-    if spec.nb_deriv == 1 and not spec.time_optimal:
+    if _riccati_route(spec):
         return tuple(spec.Rt.tolist()), float(spec.dt)
     return None
 
@@ -155,27 +194,26 @@ def _backward(spec: Spec, X, fX, U, As, Bs, Js, pscan: bool = False,
     ds [B, H-1, nu]). `host` is `_host_consts(spec)` when the caller holds
     it already (a solve reads it once, not once a sweep).
 
-    The structured first-order kinds (nb_deriv 1, not time-optimal) hand the
-    dense per-step J, e and limit terms to `riccati_backward`: the CUDA
-    kernel for CUDA tensors, its twin on the CPU. Every other kind
-    quadratizes with `cost_gradients` and runs the generic recursion
-    `_backward_core`.
+    The structured first-order kinds (nb_deriv 1, not time-optimal) with
+    precisions the same for every lane hand the dense per-step J, e, limit
+    terms (`_limit_diag`) and precisions to `riccati_backward`: the CUDA
+    kernel for CUDA tensors, its twin on the CPU. Every other kind, and a
+    per-scenario `prec`, quadratizes with `cost_gradients` and runs the
+    generic recursion `_backward_core`.
     """
     if pscan:
         raise NotImplementedError(
             "backward='pscan' is not ported yet (ROADMAP Queue 1 item 11)")
     H = spec.horizon
     ks = torch.arange(H, device=X.device)
-    if spec.nb_deriv == 1 and not spec.time_optimal:
+    if _riccati_route(spec):
         e = funcs.residual(spec, fX, ks)
-        if spec.limits_set:
-            ld, lq = funcs.limit_terms(spec, X)
-        else:
-            ld = lq = torch.zeros_like(X)
+        ld, lq = _limit_diag(spec, X)
+        prec = spec.prec if spec.kind != "sequential" else funcs.prec_at(spec, ks)
         Rt, dt = host or _host_consts(spec)
         return riccati_backward(
             Js.contiguous(), e.contiguous(), ld.contiguous(), lq.contiguous(),
-            U.contiguous(), spec.prec.contiguous(), Rt, dt, _REG)
+            U.contiguous(), prec.contiguous(), Rt, dt, _REG)
     U_pad = torch.cat([U, torch.zeros_like(U[:, :1])], dim=1)  # u = 0 at H-1
     l_x, l_u, l_xx = funcs.cost_gradients(spec, X, fX, Js, U_pad, ks)
     return _backward_core(spec, As, Bs, l_x[:, :-1], l_u[:, :-1], l_xx[:, :-1],
@@ -223,9 +261,13 @@ def _backward_core(spec: Spec, As, Bs, l_x, l_u, l_xx, lN_x, lN_xx,
 
 def static_kp_steps(spec: Spec):
     """Keypoint timesteps as a tuple of ints, read from the spec's kp_mask
-    (the union over any leading batch axes)."""
-    m = spec.kp_mask.detach().cpu().numpy() != 0
-    return tuple(int(k) for k in np.nonzero(m.reshape(-1, m.shape[-1]).any(0))[0])
+    (the union over any leading batch axes, and over the subsystems of a
+    sequential spec)."""
+    specs = spec.subs if spec.kind == "sequential" else (spec,)
+    m = np.concatenate([
+        (s.kp_mask.detach().cpu().numpy() != 0).reshape(-1, spec.horizon)
+        for s in specs])
+    return tuple(int(k) for k in np.nonzero(m.any(0))[0])
 
 
 # ---------------------------------------------------------------------------
@@ -237,10 +279,19 @@ def _lead(mask, like):
     return mask.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
+def _record(buf, it, active, value):
+    """Write value [B] at each active lane's iteration index it [B] of
+    buf [B, nb_iter]."""
+    cols = torch.arange(buf.shape[1], device=buf.device)[None, :]
+    return torch.where((cols == it[:, None]) & active[:, None],
+                       value[:, None], buf)
+
+
 def _solve_impl(spec: Spec, x0s, U0s, nb_iter: int, line_search: bool,
-                early_stop: bool) -> ILQRResult:
+                early_stop: bool, record: bool = False) -> ILQRResult:
     """The batched solve: x0s [B, nx], U0s [B, H-1, nu] on the spec's device
-    -> ILQRResult with a leading scenario axis."""
+    -> ILQRResult with a leading scenario axis; `record` fills `progress`
+    ({"cost", "alpha"} [B, nb_iter], NaN beyond each lane's iterations)."""
     global TRIALS
     H, nu, nx = spec.horizon, spec.nu, spec.nx
     B = x0s.shape[0]
@@ -259,6 +310,9 @@ def _solve_impl(spec: Spec, x0s, U0s, nb_iter: int, line_search: bool,
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     alpha = torch.ones_like(cost)
     a_sched = [2.0 ** -i for i in range(11)] if line_search else [1.0]
+    if record:
+        rec_cost = cost.new_full((B, nb_iter), float("nan"))
+        rec_alpha = rec_cost.clone()
 
     while True:
         active = ~done & (it < nb_iter)
@@ -288,6 +342,9 @@ def _solve_impl(spec: Spec, x0s, U0s, nb_iter: int, line_search: bool,
         if early_stop:
             new_done = done | ((alpha_n * torch.sqrt(du_acc) < 1e-3)
                                & (costn < 1e-3))
+        if record:
+            rec_cost = _record(rec_cost, it, active, costn)
+            rec_alpha = _record(rec_alpha, it, active, alpha_n)
         X = torch.where(_lead(active, X), Xn, X)
         U = torch.where(_lead(active, U), Un, U)
         cost = torch.where(active, costn, cost)
@@ -299,19 +356,23 @@ def _solve_impl(spec: Spec, x0s, U0s, nb_iter: int, line_search: bool,
 
     return ILQRResult(X=X, fX=funcs.fx(spec, X), U=U, Ks=Ks,
                       ds=alpha[:, None, None] * ds, cost=cost, iterations=it,
-                      alpha=alpha)
+                      alpha=alpha,
+                      progress={"cost": rec_cost, "alpha": rec_alpha}
+                      if record else None)
 
 
 def _check_options(backward: str = "scan", guard: bool = False,
                    record: bool = False, callback=None):
-    """Raise for the arguments of the JAX `solve` that are not ported."""
+    """Raise for contradictory arguments and for those of the JAX `solve`
+    that are not ported."""
     if backward not in ("scan", "pscan"):
         raise ValueError(f"backward must be 'scan' or 'pscan', got {backward!r}")
+    if record and callback is not None:
+        raise ValueError("record=True and callback are mutually exclusive")
     if backward == "pscan":
         raise NotImplementedError(
             "backward='pscan' is not ported yet (ROADMAP Queue 1 item 11)")
-    for name, value in (("guard", guard), ("record", record),
-                        ("callback", callback)):
+    for name, value in (("guard", guard), ("callback", callback)):
         if value:
             raise NotImplementedError(
                 f"{name}= is not ported yet (ROADMAP Queue 1 item 15)")
@@ -324,8 +385,10 @@ def solve(spec: Spec, U0, nb_iter: int, line_search: bool = True,
     """Solve the problem from the initial controls U0 [H-1, nu], on the
     spec's device (CUDA unless the spec was built with device="cpu").
 
-    The signature is the JAX `solve`'s; `callback`, `backward='pscan'`,
-    `guard` and `record` are not ported yet and raise NotImplementedError.
+    The signature is the JAX `solve`'s. `record=True` returns `progress`,
+    {"cost": [nb_iter], "alpha": [nb_iter]} at each executed iteration and
+    NaN beyond (it excludes `callback`). `callback`, `backward='pscan'` and
+    `guard` are not ported yet and raise NotImplementedError.
     """
     _check_options(backward, guard, record, callback)
     U0 = torch.as_tensor(U0, dtype=spec.dtype, device=spec.device)
@@ -333,7 +396,9 @@ def solve(spec: Spec, U0, nb_iter: int, line_search: bool = True,
         raise ValueError(f"U0 must be [{spec.horizon - 1}, {spec.nu}], got "
                          f"{tuple(U0.shape)}")
     res = _solve_impl(spec, spec.x0[None], U0[None], int(nb_iter),
-                      bool(line_search), bool(early_stop))
-    return ILQRResult(**{f.name: getattr(res, f.name)[0]
-                         for f in dataclasses.fields(res)
-                         if f.name != "progress"})
+                      bool(line_search), bool(early_stop), bool(record))
+    out = {f.name: getattr(res, f.name)[0] for f in dataclasses.fields(res)
+           if f.name != "progress"}
+    if record:
+        out["progress"] = {k: v[0] for k, v in res.progress.items()}
+    return ILQRResult(**out)

@@ -17,7 +17,14 @@ Quirks of the reference that the results depend on:
   * The time-optimal double integrator's last column of B reads the
     *updated* joint velocity.
 
-Sequential composition is not ported yet (ROADMAP Queue 1 item 9).
+A sequential spec concatenates its subsystems' forward maps, Jacobian rows
+and residuals, takes a block-diagonal precision, sums the subsystems' limit
+and control-penalty costs, and follows subsystem 0's dynamics.
+
+Per-scenario keypoint leaves: `mu`, `prec`, `pos_radius`, `orn_thresh` and
+`kp_mask` may carry one more LEADING axis, the scenario batch B (the spec of
+`parallel.mesh.batch_specs`); the states then carry B as their first axis
+too, and the step index broadcasts against the axes after it.
 """
 
 import torch
@@ -41,10 +48,24 @@ __all__ = [
 ]
 
 
-def _no_sequential(spec: Spec):
-    if spec.kind == "sequential":
-        raise NotImplementedError(
-            "sequential specs are not ported yet (ROADMAP Queue 1 item 9)")
+# the dimensions of each keypoint leaf without a scenario axis
+_LEAF_DIMS = {"mu": 2, "prec": 3, "kp_mask": 1, "pos_radius": 1,
+              "orn_thresh": 2}
+
+
+def _at(spec: Spec, name: str, k):
+    """Leaf `name` at step k; a leaf with a leading scenario axis keeps it
+    in front ([B, ...] at an int k, [B, len(k), ...] at a step tensor)."""
+    leaf = getattr(spec, name)
+    if leaf.dim() > _LEAF_DIMS[name]:
+        return leaf[:, k]
+    return leaf[k]
+
+
+def _subs_of(spec: Spec):
+    if not spec.subs:
+        raise ValueError("a sequential spec needs at least one subsystem")
+    return spec.subs
 
 
 def _mv(A, v):
@@ -77,7 +98,12 @@ def fx_jac(spec: Spec, x):
     for the task-space kinds, the identity for joint space, and a unit
     row/column for the time axis.
     """
-    _no_sequential(spec)
+    if spec.kind == "sequential":
+        parts = [fx_jac(sub, x) for sub in _subs_of(spec)]
+        batch = torch.broadcast_shapes(*(J.shape[:-2] for _, J in parts))
+        return (torch.cat([f for f, _ in parts], dim=-1),
+                torch.cat([J.expand(*batch, *J.shape[-2:]) for _, J in parts],
+                          dim=-2))
     dof, nx = spec.dof, spec.nx
     batch = x.shape[:-1]
 
@@ -86,7 +112,7 @@ def fx_jac(spec: Spec, x):
         return x, J.expand(*batch, spec.nq_var, nx)
 
     q, dq, t = _unpack(spec, x)
-    ks = robot_kin(spec.robot, q, dq)
+    ks = robot_kin(spec.robot, q, dq, with_dJ=False)
 
     if spec.kind == "point":
         c = spec.robot.nb_car_dim
@@ -127,7 +153,8 @@ def fx(spec: Spec, x):
     a line-search trial needs. The first-order task-space kinds walk the
     chain without forming the Jacobian; a second-order forward map holds
     velocities J dq, so it goes through `fx_jac`."""
-    _no_sequential(spec)
+    if spec.kind == "sequential":
+        return torch.cat([fx(sub, x) for sub in _subs_of(spec)], dim=-1)
     if spec.nb_deriv == 2 or spec.kind in ("joint", "joint_time"):
         return fx_jac(spec, x)[0]
     q, _, t = _unpack(spec, x)
@@ -155,7 +182,7 @@ def _posorn_residual(spec: Spec, fx, k):
     second order appends dp* - dp and -2 E(q*)(dq* - transport(dq, q -> q*)).
     """
     c = spec.robot.nb_car_dim
-    mu_k = spec.mu[k]
+    mu_k = _at(spec, "mu", k)
     p_t, q_t = mu_k[..., :c], mu_k[..., c:c + 4]
     p, quat = fx[..., :c], fx[..., c:c + 4]
     E = sd.dquat_to_dx_jac(q_t)
@@ -164,11 +191,11 @@ def _posorn_residual(spec: Spec, fx, k):
 
     # Dead zones, on the position/orientation residuals only (not the
     # velocity parts).
-    radius = spec.pos_radius[k]
+    radius = _at(spec, "pos_radius", k)
     nrm = torch.sqrt((r_p * r_p).sum(-1))
     shrunk = _safe_div(r_p, nrm[..., None]) * (nrm - radius)[..., None]
     r_p = torch.where((nrm <= radius)[..., None], torch.zeros_like(r_p), shrunk)
-    th = spec.orn_thresh[k]
+    th = _at(spec, "orn_thresh", k)
     r_o = torch.where(r_o.abs() <= th, torch.zeros_like(r_o),
                       r_o - torch.sign(r_o) * th)
 
@@ -185,7 +212,12 @@ def residual(spec: Spec, fx, k):
     """Keypoint residual e(f(x), k) [..., nQ]; zero when step k has no
     keypoint, or (position + orientation rows only) when the forward map is
     exactly zero."""
-    _no_sequential(spec)
+    if spec.kind == "sequential":
+        es, off = [], 0
+        for sub in _subs_of(spec):
+            es.append(residual(sub, fx[..., off:off + sub.nt], k))
+            off += sub.nt
+        return torch.cat(es, dim=-1)
     if spec.kind.startswith("posorn"):
         fx_po = fx[..., :spec.nt - 1] if spec.time_optimal else fx
         core = _posorn_residual(spec, fx_po, k)
@@ -193,18 +225,29 @@ def residual(spec: Spec, fx, k):
         core = torch.where(zero_state[..., None], torch.zeros_like(core), core)
         if spec.time_optimal:
             # the time row is appended unguarded
-            r_t = spec.mu[k][..., -1] - fx[..., -1]
+            r_t = _at(spec, "mu", k)[..., -1] - fx[..., -1]
             core = torch.cat([core, r_t[..., None]], dim=-1)
         e = core
     else:  # joint / joint_time / point: plain unguarded Euclidean residual
-        e = spec.mu[k] - fx
-    return e * spec.kp_mask[k][..., None]
+        e = _at(spec, "mu", k) - fx
+    return e * _at(spec, "kp_mask", k)[..., None]
 
 
 def prec_at(spec: Spec, k):
-    """Precision [..., nQ, nQ] at step k."""
-    _no_sequential(spec)
-    return spec.prec[k]
+    """Precision [..., nQ, nQ] at step k; block-diagonal over the
+    subsystems of a sequential spec."""
+    if spec.kind != "sequential":
+        return _at(spec, "prec", k)
+    blocks = [prec_at(sub, k) for sub in _subs_of(spec)]
+    batch = torch.broadcast_shapes(*(b.shape[:-2] for b in blocks))
+    n = spec.nq_var
+    P = blocks[0].new_zeros(*batch, n, n)
+    off = 0
+    for b in blocks:
+        w = b.shape[-1]
+        P[..., off:off + w, off:off + w] = b
+        off += w
+    return P
 
 
 # --------------------------------------------------------------------------
@@ -226,8 +269,15 @@ def limit_terms(spec: Spec, x):
 
 
 def _limit_triplet(spec: Spec, x):
-    """(cost [...], L^T q [..., nx], diag(L^T L) [..., nx])."""
-    _no_sequential(spec)
+    """(cost [...], L^T q [..., nx], diag(L^T L) [..., nx]), summed over
+    the subsystems of a sequential spec."""
+    if spec.kind == "sequential":
+        zero = torch.zeros_like(x)
+        cost, Lq, L2 = zero.sum(-1), zero, zero
+        for sub in _subs_of(spec):
+            c_s, Lq_s, L2_s = _limit_triplet(sub, x)
+            cost, Lq, L2 = cost + c_s, Lq + Lq_s, L2 + L2_s
+        return cost, Lq, L2
     if not spec.limits_set:
         zero = torch.zeros_like(x)
         return zero.sum(-1), zero, zero
@@ -237,9 +287,11 @@ def _limit_triplet(spec: Spec, x):
 
 def ctrl_cost(spec: Spec, u, k):
     """Control penalty as counted in the cost *value*: u^T R u only where
-    step k has a keypoint."""
-    _no_sequential(spec)
-    return spec.kp_mask[k] * (spec.Rt * u * u).sum(-1)
+    step k has a keypoint; each subsystem of a sequential spec adds its own
+    at its own keypoints."""
+    if spec.kind == "sequential":
+        return sum(ctrl_cost(sub, u, k) for sub in _subs_of(spec))
+    return _at(spec, "kp_mask", k) * (spec.Rt * u * u).sum(-1)
 
 
 # --------------------------------------------------------------------------
@@ -262,7 +314,8 @@ def final_cost(spec: Spec, x, fx):
 
 def cost_gradients(spec: Spec, x, fx, J, u, k):
     """(l_x, l_u, l_xx) of the Gauss-Newton quadratization:
-    l_x = -J^T P e - L^T q, l_xx = J^T P J + L^T L, l_u = R u."""
+    l_x = -J^T P e - L^T q, l_xx = J^T P J + L^T L, l_u = R u (the
+    top-level R of a sequential spec)."""
     e = residual(spec, fx, k)
     P = prec_at(spec, k)
     _, Lq, L2 = _limit_triplet(spec, x)
@@ -279,8 +332,10 @@ def cost_gradients(spec: Spec, x, fx, J, u, k):
 
 def constant_AB(spec: Spec, dtype):
     """(A [nx, nx], B [nx, nu]) for the state-independent integrators, or
-    None for the time-optimal kinds, whose B depends on (x, u)."""
-    _no_sequential(spec)
+    None for the time-optimal kinds, whose B depends on (x, u). A sequential
+    spec follows subsystem 0."""
+    if spec.kind == "sequential":
+        return constant_AB(_subs_of(spec)[0], dtype)
     if spec.time_optimal:
         return None
     dof, nx, nu = spec.dof, spec.nx, spec.nu
@@ -298,6 +353,8 @@ def constant_AB(spec: Spec, dtype):
 
 def _next_state(spec: Spec, x, u):
     """One integrator step x' [..., nx] (the state part of `dynamics`)."""
+    if spec.kind == "sequential":
+        return _next_state(_subs_of(spec)[0], x, u)
     dof = spec.dof
     if not spec.time_optimal:
         dt = spec.dt.to(x.dtype)
@@ -323,9 +380,10 @@ def dynamics(spec: Spec, x, u):
     Acceleration control (nb_deriv=2): semi-implicit Euler q' = q + dt dq +
     dt^2/2 u, dq' = dq + dt u; A = [[I, dt I], [0, I]], B = [[dt^2/2 I],
     [dt I]]. The time-optimal kinds use dt = s^2 with s = u[-1] and the
-    chain-rule last column of B.
+    chain-rule last column of B. A sequential spec follows subsystem 0.
     """
-    _no_sequential(spec)
+    if spec.kind == "sequential":
+        return dynamics(_subs_of(spec)[0], x, u)
     dof, nx, nu = spec.dof, spec.nx, spec.nu
     batch = torch.broadcast_shapes(x.shape[:-1], u.shape[:-1])
     xn = _next_state(spec, x, u)

@@ -11,12 +11,14 @@ Kinds, first order (nb_deriv=1) and double integrator (nb_deriv=2):
   'point'        end-effector position tracking
   'posorn_time'  'posorn' with a continuous-time state and a sqrt-dt control
   'joint_time'   'joint' likewise
+  'sequential'   subsystems sharing the state and control, their targets
+                 concatenated (`sequential_spec`)
 The time-optimal kinds run at nb_deriv=1 only here (nb_deriv=2 is ROADMAP
-Queue 1 item 7, still open); sequential composition is item 9.
+Queue 1 item 7, still open).
 """
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,7 +26,7 @@ import torch
 from ilqr_planner_torch.models.robot import Robot
 from ilqr_planner_torch.utils.device import resolve_device
 
-__all__ = ["Spec", "make_spec"]
+__all__ = ["Spec", "make_spec", "sequential_spec", "split_overrides"]
 
 _KIND_CHECK = {
     "posorn": ("POS_ORN",),
@@ -57,6 +59,7 @@ class Spec:
     limits_set: bool
 
     robot: Optional[Robot] = None
+    subs: Tuple["Spec", ...] = ()
 
     dt: Optional[torch.Tensor] = None          # fixed step (0 for time kinds)
     mu: Optional[torch.Tensor] = None          # [H, nt]
@@ -75,11 +78,12 @@ class Spec:
 
     @property
     def dof(self) -> int:
-        return self.q0.shape[-1]
+        return (self.subs[0] if self.kind == "sequential" else self).q0.shape[-1]
 
     @property
     def time_optimal(self) -> bool:
-        return self.kind.endswith("_time")
+        k = self.subs[0].kind if self.kind == "sequential" else self.kind
+        return k.endswith("_time")
 
     @property
     def nx(self) -> int:
@@ -91,11 +95,15 @@ class Spec:
 
     @property
     def nt(self) -> int:
+        if self.kind == "sequential":
+            return sum(s.nt for s in self.subs)
         return self.mu.shape[-1]
 
     @property
     def nq_var(self) -> int:
         """Residual dimension (a quaternion's 4 entries give 3)."""
+        if self.kind == "sequential":
+            return sum(s.nq_var for s in self.subs)
         return self.prec.shape[-1]
 
     @property
@@ -107,12 +115,14 @@ class Spec:
         return self.x0.dtype
 
     def tensors(self) -> dict:
-        """Every tensor leaf by name, the robot's chain under 'chain.*'."""
+        """Every tensor leaf by name: the robot's under 'robot.*', each
+        subsystem's under 'subs.<i>.*'."""
         out = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
                if isinstance(getattr(self, f.name), torch.Tensor)}
         if self.robot is not None:
-            for f in dataclasses.fields(self.robot.chain):
-                out[f"chain.{f.name}"] = getattr(self.robot.chain, f.name)
+            out.update({f"robot.{k}": v for k, v in self.robot.tensors().items()})
+        for i, sub in enumerate(self.subs):
+            out.update({f"subs.{i}.{k}": v for k, v in sub.tensors().items()})
         return out
 
 
@@ -153,8 +163,8 @@ def make_spec(kind: str, robot: Robot, keypoints, Rt_diag, horizon: int,
     """Build a dense Spec for one system kind on `device` (None: CUDA).
 
     Validates keypoint tags and orders and builds the limit arrays and the
-    initial state like the JAX `make_spec`. The robot's chain is moved to the
-    spec's device.
+    initial state like the JAX `make_spec`. The robot (chain or planar, with
+    its object frame) is moved to the spec's device.
     """
     if kind not in _KIND_CHECK:
         raise ValueError(f"unknown system kind {kind!r}")
@@ -165,8 +175,6 @@ def make_spec(kind: str, robot: Robot, keypoints, Rt_diag, horizon: int,
         raise NotImplementedError(
             f"kind {kind!r} at nb_deriv=2 is not ported yet (ROADMAP Queue 1 "
             f"item 7: the time-optimal double integrator)")
-    if robot.kind != "chain":
-        raise NotImplementedError(f"robot kind {robot.kind!r} is not ported yet")
     for kp in keypoints:
         if kp.TAG not in _KIND_CHECK[kind]:
             raise ValueError(f"[{kind}] Wrong keypoint type: got {kp.TAG}")
@@ -213,10 +221,7 @@ def make_spec(kind: str, robot: Robot, keypoints, Rt_diag, horizon: int,
     def t(a):
         return torch.as_tensor(np.asarray(a, dtype=np_dtype), device=dev)
 
-    chain = robot.chain
-    robot = dataclasses.replace(robot, chain=dataclasses.replace(
-        chain, **{f.name: getattr(chain, f.name).to(dev)
-                  for f in dataclasses.fields(chain)}))
+    robot = robot.to(dev)
     return Spec(
         kind=kind,
         nb_deriv=nb_deriv,
@@ -238,3 +243,65 @@ def make_spec(kind: str, robot: Robot, keypoints, Rt_diag, horizon: int,
         q0=t(q0),
         dq0=t(dq0),
     )
+
+
+def sequential_spec(subs, Rt_diag, dtype=torch.float64) -> Spec:
+    """Compose subsystems that share the state and control spaces, their
+    target spaces concatenated.
+
+    Raises ValueError unless every subsystem has the same number of state
+    and control variables, horizon, number of derivatives and initial state.
+    The dynamics are subsystem 0's; the costs of the subsystems (each with
+    its own control penalty and joint limits) add up, while the top-level
+    Rt drives the solver's gradient and Hessian in u. On the subsystems'
+    device.
+    """
+    subs = tuple(subs)
+    s0 = subs[0]
+    for s in subs[1:]:
+        if s.nx != s0.nx:
+            raise ValueError("All the systems do not have the same number of state variables")
+        if s.nu != s0.nu:
+            raise ValueError("All the systems do not have the same number of control variables")
+        if s.horizon != s0.horizon:
+            raise ValueError("All the systems do not have the same horizon")
+        if s.nb_deriv != s0.nb_deriv:
+            raise ValueError("All the systems do not have the same number of derivatives")
+        if not np.allclose(s.x0.detach().cpu().numpy(), s0.x0.detach().cpu().numpy()):
+            raise ValueError("All the systems do not have the same initState")
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np_dtype), device=s0.device)
+
+    return Spec(
+        kind="sequential",
+        nb_deriv=s0.nb_deriv,
+        horizon=s0.horizon,
+        limits_set=False,   # the top level has no limits of its own
+        subs=subs,
+        Rt=t(np.asarray(Rt_diag, float)),
+        x0=s0.x0,
+        q0=s0.q0,
+        dq0=s0.dq0,
+        dt=s0.dt,
+        penalty=t(0.0),
+    )
+
+
+def split_overrides(kind: str, n_subs: int, overrides) -> list:
+    """Per-scenario leaf overrides {name: array} -> one dict a subsystem
+    (a plain spec is one). A sequential spec takes each override as a list
+    with one entry a subsystem, None keeping that subsystem's leaf; a plain
+    spec takes arrays only."""
+    if kind != "sequential":
+        if any(isinstance(v, (list, tuple)) for v in overrides.values()):
+            raise ValueError("list-valued overrides are only for sequential specs")
+        return [dict(overrides)]
+    for name, v in overrides.items():
+        if not isinstance(v, (list, tuple)) or len(v) != n_subs:
+            raise ValueError(
+                f"sequential override {name!r} must be a list with one entry "
+                f"per subsystem ({n_subs}), None to skip")
+    return [{name: v[i] for name, v in overrides.items() if v[i] is not None}
+            for i in range(n_subs)]

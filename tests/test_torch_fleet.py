@@ -8,12 +8,15 @@ Tolerances: iterations and alpha equal per lane; cost rtol 1e-9 and U atol
 boundary lane and move the final iterate by more than 1e-12).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from ilqr_planner_torch.models import PANDA_URDF, Robot, chain_from_urdf
-from ilqr_planner_torch.parallel import mesh, solve_batch
+from ilqr_planner_torch.models import (PANDA_URDF, PlanarRobot, Robot,
+                                       chain_from_urdf)
+from ilqr_planner_torch.parallel import mesh, solve_batch, solve_batch_staged
 from ilqr_planner_torch.solvers.fleet import make_fleet_solver
 from ilqr_planner_torch.systems import keypoints as kps_mod
 from ilqr_planner_torch.systems.spec import make_spec
@@ -185,12 +188,20 @@ def test_out_of_scope_raises_not_implemented():
     with pytest.raises(ValueError, match="unknown system kind"):
         make_spec("sequential", robot, [], np.ones(7) * 1e-5, H, 1, dt=0.1,
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="overrides"):
-        make_fleet_solver(spec, 2, overrides=("mu",))
-    with pytest.raises(NotImplementedError, match="record"):
-        make_fleet_solver(spec, 2, record=True)
+    # what the fleet still does not take: a leaf outside FLEET_OVERRIDES, a
+    # posorn target on a planar robot, the time-optimal double integrator
+    # (ROADMAP Queue 1 item 3); the staged schedule does not record
+    with pytest.raises(ValueError, match="unsupported fleet overrides"):
+        make_fleet_solver(spec, 2, overrides=("dt",))
+    planar = Robot.from_planar(PlanarRobot(torch.ones(3, dtype=torch.float64)))
+    with pytest.raises(ValueError, match="fleet scope"):
+        make_fleet_solver(dataclasses.replace(spec, kind="posorn",
+                                              robot=planar), 2)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        make_fleet_solver(dataclasses.replace(spec, kind="joint_time",
+                                              nb_deriv=2), 2)
     U0s = np.zeros((2, H - 1, 7))
-    with pytest.raises(NotImplementedError, match="keypoint overrides"):
-        solve_batch(spec, {"mu": np.zeros((2, H, 7))}, U0s, 2)
-    with pytest.raises(NotImplementedError, match="record"):
-        solve_batch(spec, {}, U0s, 2, record=True)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        solve_batch(spec, {"dt": np.zeros(2)}, U0s, 2)
+    with pytest.raises(ValueError, match="record=True"):
+        solve_batch_staged(spec, {}, U0s, 2, record=True)

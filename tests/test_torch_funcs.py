@@ -282,6 +282,7 @@ def test_dynamics_branches_match_jax(kind, nb):
 
 
 def test_sequential_raises_not_implemented():
+    """Sequential specs are ported; one without subsystems is refused."""
     _, spec = _specs("joint", 1)
     seq = dataclasses.replace(spec, kind="sequential")
     x = spec.x0
@@ -292,5 +293,5 @@ def test_sequential_raises_not_implemented():
                  lambda: funcs.ctrl_cost(seq, x, 0),
                  lambda: funcs.constant_AB(seq, torch.float64),
                  lambda: funcs.dynamics(seq, x, x)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        with pytest.raises(ValueError, match="at least one subsystem"):
             call()

@@ -263,19 +263,19 @@ def test_unported_arguments_raise():
     U0 = _U0(spec)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         ilqr.solve(spec, U0, 2, backward="pscan")
-    for kw in (dict(guard=True), dict(record=True), dict(callback=object())):
+    for kw in (dict(guard=True), dict(callback=object())):
         with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
             ilqr.solve(spec, U0, 2, **kw)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ilqr.solve(spec, U0, 2, record=True, callback=object())
     with pytest.raises(ValueError, match="'scan' or 'pscan'"):
         ilqr.solve(spec, U0, 2, backward="tree")
     with pytest.raises(ValueError, match="U0 must be"):
         ilqr.solve(spec, U0[:-1], 2)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         ilqr._backward(spec, *([None] * 6), pscan=True)
-    with pytest.raises(NotImplementedError, match="record"):
-        solve_batch(spec, {}, U0[None], 2, prefer_fleet=False, record=True)
-    with pytest.raises(NotImplementedError, match="keypoint overrides"):
-        solve_batch(spec, {"mu": np.zeros((1, H, 7))}, U0[None], 2,
+    with pytest.raises(NotImplementedError, match="not ported"):
+        solve_batch(spec, {"Rt": np.zeros((1, 7))}, U0[None], 2,
                     prefer_fleet=False)
     with pytest.raises(ValueError, match="U0s must be"):
         solve_batch(spec, {}, U0, 2, prefer_fleet=False)

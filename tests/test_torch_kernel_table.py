@@ -7,7 +7,8 @@
 (b) No module of the port, nor `chip_smoke.py`, imports JAX or the JAX
     package (an `ast` walk, so comments and strings do not count).
 (c) The launch-geometry helpers of the kernels (each at the 7-DoF arm's
-    widths and at 6 and 3 DoF; riccati at each residual width) cover every
+    widths and at 6 and 3 DoF; riccati at each residual width, at the
+    sequential specs' 12 and 13, the planar 2 and its widest) cover every
     lane of a batch and stay within the shared memory a block may take on
     the H100; every width up to a wrapper's stated limit fits a block; and
     the wrappers' constants are the ones the CUDA sources define.
@@ -149,6 +150,12 @@ GEOMETRIES = {
         B, dt, d + 1)) for d in DOFS},
     **{f"riccati_{d}x{nq}": (lambda B, dt, d=d, nq=nq: riccati.launch_geometry(
         B, dt, d, nq)) for d in DOFS for nq in sorted(set(riccati.residual_widths(d)))},
+    # the sequential specs' widths (two position + orientation subsystems;
+    # joint + position/orientation), the planar point's, the widest
+    **{f"riccati_{d}x{nq}": (lambda B, dt, d=d, nq=nq: riccati.launch_geometry(
+        B, dt, d, nq)) for d, nq in ((7, 12), (7, 13), (3, 2))},
+    "riccati_max_n_x_max_nq": lambda B, dt: riccati.launch_geometry(
+        B, dt, riccati.MAX_N[dt], riccati.MAX_NQ[dt]),
 }
 
 
@@ -185,6 +192,9 @@ LIMITS = {
     **{f"riccati_nq{label}": (riccati.MAX_N, 1, lambda w, dt, i=i: riccati.launch_geometry(
         64, dt, w, riccati.residual_widths(w)[i]))
        for i, label in enumerate(("6", "n", "3"))},
+    # the residual width nq, at each type's widest chain
+    "riccati_residual": (riccati.MAX_NQ, 1, lambda w, dt: riccati.launch_geometry(
+        64, dt, riccati.MAX_N[dt], w)),
 }
 
 
@@ -202,6 +212,18 @@ def test_every_width_up_to_the_limit_fits(kernel, dtype):
     for w in range(first, top + 1):
         g = geometry(w, dtype)
         assert g["threads"] <= 1024 and g["smem_bytes"] <= nvcc_build.SMEM_PER_BLOCK_MAX
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_riccati_max_nq_is_the_block_fit(dtype):
+    """riccati's residual limit is the block's fit at the type's widest
+    chain: one nq more needs more shared memory than one H100 SM gives a
+    block."""
+    top, n = riccati.MAX_NQ[dtype], riccati.MAX_N[dtype]
+    assert top >= 13   # the widest residual of this repo's specs (hybrid)
+    g = riccati.launch_geometry(64, dtype, n, top + 1)
+    assert g["smem_bytes"] > nvcc_build.SMEM_PER_BLOCK_MAX
 
 
 def test_geometry_matches_the_cuda_sources():

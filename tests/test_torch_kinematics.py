@@ -136,7 +136,11 @@ def test_fk_and_jacobian_match_jax(jax_chain):
     np.testing.assert_allclose(ks.w.numpy(), np.einsum("bij,bj->bi",
                                                        J_ref[:, 3:], dq),
                                atol=TOL, rtol=0)
-    assert ks.dJ is None
+    kin = jax.jit(jax.vmap(lambda qq, vv: jchain_mod.chain_kin(jax_chain, qq, vv)))
+    np.testing.assert_allclose(ks.dJ.numpy(),
+                               np.asarray(kin(jnp.asarray(q), jnp.asarray(dq)).dJ),
+                               atol=TOL, rtol=0)
+    assert chain_kin(chain, _t(q), _t(dq), with_dJ=False).dJ is None
 
 
 def test_fleet_lane_major_fk_matches_chain(chain):
@@ -160,12 +164,20 @@ def test_fleet_lane_major_fk_matches_chain(chain):
 
 
 def test_robot_later_slices_raise(chain):
+    """Frames and planar robots are ported; a frame on a planar robot and
+    an unknown kind raise."""
+    from ilqr_planner_torch.models import PlanarRobot, robot_kin
+
     robot = Robot.from_chain(chain)
     assert robot.dof == 7 and robot.nb_car_dim == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        robot.with_frame(np.eye(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Robot.from_planar(None)
+    assert robot.with_frame(np.eye(4)).frame.dtype == chain.origin_pos.dtype
+    planar = Robot.from_planar(PlanarRobot(torch.ones(3, dtype=torch.float64)))
+    assert planar.dof == 3 and planar.nb_car_dim == 2
+    with pytest.raises(ValueError, match="3-D"):
+        planar.with_frame(np.eye(4))
+    q = torch.zeros(7, dtype=torch.float64)
+    with pytest.raises(ValueError, match="unknown robot kind"):
+        robot_kin(Robot(kind="mesh", chain=chain), q, q)
 
 
 def test_default_device_is_cuda():

@@ -212,11 +212,14 @@ def test_wrapper_checks_without_a_card():
     passes the width checks (and then meets the device check); another
     residual width, or a chain above the limit, raises naming it, before
     any build."""
-    for n, nq in ((7, 6), (7, 7), (7, 3), (6, 6), (6, 3), (3, 3), (8, 8), (1, 6)):
+    for n, nq in ((7, 6), (7, 7), (7, 3), (6, 6), (6, 3), (3, 3), (8, 8), (1, 6),
+                  (7, 12), (7, 13), (3, 2), (7, 4)):
         with pytest.raises(ValueError, match="must be a CUDA tensor"):
             ric.riccati_backward(*_meta(n=n, nq=nq), [1e-5] * n, DT)
-    with pytest.raises(ValueError, match="nq = 6, n or 3"):
-        ric.riccati_backward(*_meta(nq=4), RT, DT)
+    for dtype in (torch.float32, torch.float64):
+        top = ric.MAX_NQ[dtype]
+        with pytest.raises(ValueError, match=rf"nq <= {top} in"):
+            ric.riccati_backward(*_meta(nq=top + 1, dtype=dtype), RT, DT)
     for dtype in (torch.float32, torch.float64):
         top = ric.MAX_N[dtype]
         with pytest.raises(ValueError, match=rf"n <= {top} joints.*Queue 3 F3"):
@@ -240,7 +243,11 @@ def _rel(got, want):
 # each type's limit at every residual width (posorn, joint, point)
 CARD_CASES = [(7, 6), (7, 7), (7, 3), (6, 6), (6, 3), (3, 3)] + [
     (n, nq) for n in sorted({8, *ric.MAX_N.values()}) if n > N
-    for nq in ric.residual_widths(n)]
+    for nq in ric.residual_widths(n)] + [
+    # sequential specs' widths (two posorn subsystems; joint + posorn), the
+    # planar point's, and each type's widest residual
+    (7, 12), (7, 13), (3, 2)] + sorted({
+        (ric.MAX_N[t], ric.MAX_NQ[t]) for t in (torch.float32, torch.float64)})
 
 
 @pytest.mark.cuda
@@ -251,7 +258,7 @@ def test_kernel_matches_twin_on_card(n, nq):
     at two steps and at every step, and on a horizon that is no multiple of
     the staged chunk; float32: error against the float64 twin on the same
     (rounded) inputs within 10x the float32 twin's own, or 1e-6; each type
-    up to its `MAX_N`. At nq = 6 the limit penalty is live
+    up to its `MAX_N` and `MAX_NQ`. At nq = 6 the limit penalty is live
     on 20% of the entries and the every-step precisions have unit weight;
     at the other widths and on the short horizon the inputs are scaled like
     a solve's: limits live on 0.5% of the entries, every-step weight 1e-4.
@@ -271,7 +278,7 @@ def test_kernel_matches_twin_on_card(n, nq):
     cases.append(_random_inputs(45, 13, seed=9, nq=nq, n=n, limit_frac=0.005))
     for args in cases:
         for dtype in (torch.float64, torch.float32):
-            if n > ric.MAX_N[dtype]:
+            if n > ric.MAX_N[dtype] or nq > ric.MAX_NQ[dtype]:
                 continue
             cuda = [torch.as_tensor(a, dtype=dtype, device="cuda") for a in args]
             before = ric.LAUNCHES

@@ -1,7 +1,8 @@
 """Build every chain width of each CUDA kernel and find the largest each
 source takes, on a machine with nvcc.
 
-    python3 tools/width_scan.py
+    python3 tools/width_scan.py              # every kernel's chain width
+    python3 tools/width_scan.py riccati_nq   # riccati's residual width nq
 
 For each kernel (segment_backward by n; 'second' and 'time1' by DoF; the
 rollout by n = DoF + 1; riccati by n at each residual width nq = 6, n, 3)
@@ -15,6 +16,16 @@ without a spill. The kernels' chains are built side by side, one nvcc each.
 Prints one JSON line a build and, last, the largest width of each kernel
 and type, which the wrappers' MAX_N / MAX_DOF state (riccati: the least of
 its three residual widths).
+
+With `riccati_nq` it scans riccati's residual width instead: every nq up
+to the wrapper's MAX_NQ (the block's fit at MAX_N, computed without a card:
+float32 45, float64 35) at n = 3, 7 and each type's MAX_N, eight builds at
+a time (a failed build stops it). It prints each build's registers and
+spills, lists the admitted widths of each type that spill, and times
+what a spill costs: the kernel at n = 7 on the flagship's batch (B = 4096,
+H = 100, precisions at two steps) at nq = 7 (no spill), 8 (float32 spills)
+and 9 (no spill), both types, CUDA events over ten launches, median of
+five.
 """
 
 import json
@@ -99,7 +110,75 @@ def chain(name):
     return top
 
 
+SPILL_NQ = (7, 8, 9)
+
+
+def spill_cost():
+    """Kernel ms at n = 7, nq in SPILL_NQ, B = 4096, H = 100, both types."""
+    import statistics
+
+    B, H, n = 4096, 100, 7
+    g = torch.Generator().manual_seed(0)
+    out = {}
+    for tag, dtype in TYPES.items():
+        for nq in SPILL_NQ:
+            def r(*shape):
+                return torch.randn(*shape, generator=g, dtype=torch.float64).to(
+                    dtype=dtype, device="cuda")
+            prec = torch.zeros((H, nq, nq), dtype=dtype, device="cuda")
+            prec[[H // 2, H - 1]] = torch.eye(nq, dtype=dtype, device="cuda")
+            args = (0.1 * r(B, H, nq, n), 0.01 * r(B, H, nq),
+                    torch.zeros((B, H, n), dtype=dtype, device="cuda"),
+                    torch.zeros((B, H, n), dtype=dtype, device="cuda"),
+                    0.1 * r(B, H - 1, n), prec)
+            for _ in range(3):
+                ric.riccati_backward(*args, [1e-5] * n, 0.1)
+            times = []
+            for _ in range(5):
+                t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                t0.record()
+                for _ in range(10):
+                    ric.riccati_backward(*args, [1e-5] * n, 0.1)
+                t1.record()
+                torch.cuda.synchronize()
+                times.append(t0.elapsed_time(t1) / 10)
+            out[f"{tag} 7x{nq}"] = statistics.median(times)
+    return out
+
+
+def riccati_nq():
+    ns = sorted({3, 7, *ric.MAX_N.values()})
+    top_nq = max(ric.MAX_NQ.values())
+    jobs = [(n, nq) for nq in range(1, top_nq + 1) for n in ns]
+
+    def build(job):
+        t0 = time.time()
+        _, report = ric.build(*job)
+        return job, report, time.time() - t0
+
+    with ThreadPoolExecutor(8) as ex:
+        reports = {}
+        for (n, nq), report, secs in ex.map(build, jobs):
+            reports[n, nq] = report
+            print(json.dumps({
+                "kernel": "riccati", "n": n, "nq": nq, "build_s": secs,
+                "registers": [int(r) for r in
+                              re.findall(r"Used (\d+) registers", report)],
+                "spill_bytes": spills(report)}), flush=True)
+    spilled = {tag: [[n, nq] for n in ns for nq in range(1, ric.MAX_NQ[dtype] + 1)
+                     if n <= ric.MAX_N[dtype] and spills(reports[n, nq])[tag]]
+               for tag, dtype in TYPES.items()}
+    print(json.dumps({"max_nq": {tag: ric.MAX_NQ[dtype]
+                                 for tag, dtype in TYPES.items()},
+                      "n_scanned": ns, "spilling_widths": spilled,
+                      "spill_cost_kernel_ms": spill_cost(),
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
 def main():
+    if sys.argv[1:] == ["riccati_nq"]:
+        riccati_nq()
+        return
     with ThreadPoolExecutor(len(CHAINS)) as ex:
         tops = dict(zip(CHAINS, ex.map(chain, CHAINS)))
     print(json.dumps({"largest_width": tops}), flush=True)
