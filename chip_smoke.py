@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Ten paths, each through `ilqr_planner_torch.parallel.solve_batch`,
-float32:
+Twelve paths, each through `ilqr_planner_torch.parallel.solve_batch`
+(al_h400: `solve_batch_al_staged`), float32:
   flagship   position + quaternion via-points at steps 49 and 99, H=100,
              dt=0.1, 10 iterations, B=36864, 7-DoF Panda (backward:
              segment_backward);
@@ -28,7 +28,17 @@ float32:
   sequential_h600_recursive, hybrid_h500_recursive, planar2d_recursive
              sequential_h600, the hybrid joint + position/orientation spec
              (H=500, B=8192) and planar2d through solve_batch(prefer_fleet=
-             False) (riccati at (7, 12), (7, 13) and (3, 2)), 2 timed repeats.
+             False) (riccati at (7, 12), (7, 13) and (3, 2)), 2 timed repeats;
+  al_h400    AL-iLQR: posorn, keypoints at 199 and 399, H=400, dt=0.01,
+             the bound x5 <= 2 (a 14-row A, 13 rows zero), duals from b,
+             100 iterations staged (first stage 45, buckets of 512), B=8192
+             (the bound folds into the stage rows: segment_backward at
+             H=400), 2 timed repeats;
+  timeopt2nd the time-optimal double integrator of the reference tutorial:
+             spacetime keypoints at 24 (t=2.5) and 49 (t=5), H=50, 10
+             iterations, B=2048 (the fleet's generic sweep and rollout in
+             tensor ops: no kernel; most lanes diverge to NaN, as the
+             reference notebook does).
 
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device and build: the card's name and power limit; the nvcc build of
@@ -46,20 +56,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
      (segment_backward also at n=3; riccati at (6, 6) and (6, 3)); riccati
      at the sequential specs' (7, 12) H=600 and (7, 13) H=500 and the
      planar (3, 2), segment_backward at H=600 with inner keypoints at 0
-     and 299 on a ragged batch and at the planar n=3;
+     and 299 on a ragged batch and at the planar n=3, and at al_h400's
+     H=400, B=8192 with the folded bound in its streamed rows;
   3. each path end to end: a first solve with every launch count set to 0
      just before it and read just after (each kernel of the path must have
      launched: once per backward sweep, and for the rollout once per
      line-search trial plus once for the solve's initial rollout; no
      backward kernel of another path may have launched), then the median of
-     5 timed repeats with the spread, solves/s, median cost and iterations;
+     3 timed repeats with the spread, solves/s, median cost and iterations;
      sequential_h600 and planar2d within 2x of the JAX package's float32
      median cost; the recursive runs of riccati once a backward sweep;
      flagship_ov's record ends at each lane's final cost, NaN
      beyond its last iteration, with the host time of binding its
      overrides; solve_batch_staged on flagship_ov's lanes (first stage 8
      of 10 iterations) against plain solve_batch (the same iterations,
-     alpha, costs and U, bit for bit);
+     alpha, costs and U, bit for bit); al_h400 within 2x of the JAX
+     record, segment_backward once a sweep of each stage and no generic
+     sweep, with the bound's largest violation; timeopt2nd with no kernel
+     launch, the generic sweep once an iteration, its NaN share; one
+     generic sweep's device launches, profiled;
   4. each path's first 64 lanes in float64, on the card and on the CPU
      (where the wrappers run the twins): same iterations and alpha per lane,
      every lane's cost within 1e-8 relative, or within 10 times that lane's
@@ -82,19 +97,28 @@ Phases (each prints one JSON line; any failure exits non-zero):
      routes' CPU spreads: the routes round otherwise, and on the CPU their
      gap stays within 3.2x that spread on every lane of five batches,
      `tools/route_gap.py`); and record=True on the recursive route (riccati)
-     and in ilqr.solve, card against CPU, 64 lanes, float64;
+     and in ilqr.solve, card against CPU, 64 lanes, float64; and 64 lanes
+     of al_h400's problem (12 iterations, two dual updates) on the fleet
+     and the recursive route and the two against each other, the coupled
+     bound x4 + x5 <= 2 on the fleet (the generic sweep with the AL
+     terms), and the time-optimal double integrator (posorn_time and
+     joint_time, the JAX package's test problems at H=50) on the fleet
+     after one iteration without line search (every lane within 1e-9) and
+     four with;
   5. one line, no gate: at B=4096, the dense input assembly and the riccati
      kernel beside the fleet's keypoint-sparse assembly and segment_backward;
   6. two lines, no gate: the riccati kernel against its twin at inputs
      harder than phase 2's (the limit penalty live on 5% and 20% of the
      entries), beside the twin against an LU recursion on the same inputs;
   7. a torch.profiler trace of a window of each path's solve but
-     planar2d's (its initial rollout and first two iterations, each a
-     backward sweep and a line search): device busy time, its share of the window's unprofiled wall
+     planar2d's, timeopt2nd's and the recursive slice runs (its initial
+     rollout and first two iterations, each a backward sweep and a line
+     search): device busy time, its share of the window's unprofiled wall
      time, the top kernels, and the device time a launch of the path's
      hand-written kernels on the solve's own data (the full table goes to
      chiprun_out/profile_<path>.txt).
-Then the kernel table and, last, {"ok": true, "device": {...}}.
+Then the kernel table and, last, {"ok": true, "device": {...}}. Every JSON
+line also goes to chiprun_out/chip_smoke.jsonl.
 
 It needs one card, and the repository it sits in; without either it fails
 before printing any result.
@@ -122,7 +146,7 @@ T1 = ([0.554121212377707, -0.01575049935289518, 0.38295604872511507],
 T2 = ([0.254121212377707, -0.07575049935289518, 0.13170744424127526],
       [0.029927010072216945, 0.9121514607332729, 0.4087591864532181,
        0.00011933313484481926])
-H, N, B, NB_ITER, REPEATS = 100, 7, 36864, 10, 5
+H, N, B, NB_ITER, REPEATS = 100, 7, 36864, 10, 3
 KP_INNER = (49,)          # the terminal keypoint (99) folds into P0
 QD6 = [1, 1, 1, .1, .1, .1]
 NQ = 6                    # residual width of the position + quaternion kind
@@ -158,8 +182,16 @@ XCHECK_PERTURB = 1e-15
 XCHECK_B = 64
 
 
+# every line printed also goes to a file, so that a long run's full output
+# survives where only the end of standard output is kept
+LINES = os.path.join(REPO, "chiprun_out", "chip_smoke.jsonl")
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(LINES, "a") as f:
+        f.write(line + "\n")
 
 
 def fail(msg):
@@ -827,6 +859,7 @@ def _reset_counts():
     for k in sb2.LAUNCHES:
         sb2.LAUNCHES[k] = 0
     fleet.TRIALS = 0
+    fleet.GENERIC_SWEEPS = 0
     ilqr.TRIALS = 0
 
 
@@ -841,7 +874,8 @@ def _read_counts():
             "segment_backward_2nd": sb2.LAUNCHES["second"],
             "segment_backward_time1": sb2.LAUNCHES["time1"],
             "rollout_time1": rt1.LAUNCHES, "riccati": ric.LAUNCHES,
-            "trials": fleet.TRIALS, "recursive_trials": ilqr.TRIALS}
+            "trials": fleet.TRIALS, "recursive_trials": ilqr.TRIALS,
+            "generic_sweeps": fleet.GENERIC_SWEEPS}
 
 
 def _drive(torch, spec, x0s, U0s, nb_iter, prefer_fleet=True, extra_ov=None,
@@ -1042,10 +1076,11 @@ def _cpu_spread(solve, spec_cpu, x0s, U0s, c_cpu=None):
 
 
 def _card_vs_cpu(torch, path, solve, spec_fn, x0s, U0s, kernels, sensitive,
-                 **info):
+                 rel=XCHECK_REL, **info):
     """64 lanes of a problem in float64, `solve(spec, x0s, U0s)` on the card
     (the path's kernels) and on the CPU (their twins): the same iterations
-    and alpha on every lane, and every lane's cost within 1e-8 relative;
+    and alpha (where the result has one: AL results do not) on every lane,
+    and every lane's cost within `rel` (1e-8) relative;
     where the solve is `sensitive`, a lane over 1e-8 whose CPU cost moves by
     more than 1e-9 relative when x0 moves by 1e-15 relative (up or down) is
     held to 10 times that move instead. The card must launch each of `kernels`, the CPU none.
@@ -1060,21 +1095,23 @@ def _card_vs_cpu(torch, path, solve, spec_fn, x0s, U0s, kernels, sensitive,
         counts[dev] = _read_counts()
     gpu, cpu = res["cuda"], res["cpu"]
     c_gpu, c_cpu = gpu.cost.cpu().numpy(), cpu.cost.numpy()
+    tol_rel = rel
     rel = np.abs(c_gpu - c_cpu) / np.abs(c_cpu)
-    tol = np.full(rel.shape, XCHECK_REL)
+    tol = np.full(rel.shape, tol_rel)
+    alpha = getattr(gpu, "alpha", None)
     out = {"phase": "card_vs_cpu", "path": path, **info, "batch": len(c_cpu),
            "dtype": "float64",
            "same_iterations": bool(np.array_equal(gpu.iterations.cpu().numpy(),
                                                   cpu.iterations.numpy())),
-           "same_alpha": bool(np.array_equal(gpu.alpha.cpu().numpy(),
-                                             cpu.alpha.numpy())),
+           "same_alpha": alpha is None or bool(np.array_equal(
+               alpha.cpu().numpy(), cpu.alpha.numpy())),
            "cost_max_rel_diff": float(rel.max()),
            "cost_median_rel_diff": float(np.median(rel)),
-           "tolerance": XCHECK_REL}
-    over = np.flatnonzero(rel > XCHECK_REL)
+           "tolerance": tol_rel}
+    over = np.flatnonzero(rel > tol_rel)
     if sensitive and over.size:
         spread = _cpu_spread(solve, specs["cpu"], x0s, U0s, c_cpu)
-        tol[over] = np.maximum(XCHECK_REL, XCHECK_SENS_FACTOR * spread[over])
+        tol[over] = np.maximum(tol_rel, XCHECK_SENS_FACTOR * spread[over])
         out["lanes_over_1e-8"] = [
             {"lane": int(i), "rel_diff": float(rel[i]),
              "cpu_spread": float(spread[i]), "tolerance": float(tol[i])}
@@ -1598,6 +1635,42 @@ def _seq_list_overrides(torch, spec, batch):
     return {"mu": [mu, None]}
 
 
+def _routes_agree(torch, label, gpu, solve_of, spec_fn, x0s, U0s, **info):
+    """The fleet and recursive routes' card results `gpu` {"fleet",
+    "recursive"} of one problem: the same iterations (and alpha, where the
+    result has one) and every lane's cost within 1e-8 relative, or, for a
+    lane over it, within 10 times the larger of the two routes' CPU spreads
+    (`_cpu_spread` of `solve_of(prefer_fleet)`): each route rounds otherwise
+    at every iteration (`tools/route_gap.py` tests this rule's premise on
+    the CPU)."""
+    f, r = gpu["fleet"], gpu["recursive"]
+    rel = ((r.cost - f.cost).abs() / f.cost.abs()).cpu().numpy()
+    tol = np.full(rel.shape, XCHECK_REL)
+    over = np.flatnonzero(rel > XCHECK_REL)
+    alpha = getattr(f, "alpha", None)
+    out = {"phase": "recursive_vs_fleet", "config": label, **info,
+           "batch": len(rel), "dtype": "float64",
+           "same_iterations": bool(torch.equal(r.iterations, f.iterations)),
+           "same_alpha": alpha is None or bool(torch.equal(r.alpha, alpha)),
+           "cost_max_rel_diff": float(rel.max()), "tolerance": XCHECK_REL,
+           "U_max_abs_diff": float((r.U - f.U).abs().max())}
+    if over.size:
+        spec_cpu = spec_fn(torch, torch.float64, "cpu")
+        sf, sr = (_cpu_spread(solve_of(prefer), spec_cpu, x0s, U0s)
+                  for prefer in (True, False))
+        spread = np.maximum(sf, sr)
+        tol[over] = np.maximum(XCHECK_REL, XCHECK_SENS_FACTOR * spread[over])
+        out["lanes_over_1e-8"] = [
+            {"lane": int(i), "rel_diff": float(rel[i]),
+             "cpu_spread_fleet": float(sf[i]),
+             "cpu_spread_recursive": float(sr[i]),
+             "tolerance": float(tol[i])} for i in over]
+    out["lanes_over_tolerance"] = [int(i) for i in np.flatnonzero(rel > tol)]
+    emit(out)
+    if out["lanes_over_tolerance"]:
+        fail(f"{label}: the recursive and fleet routes disagree on the card")
+
+
 def phase_slice_cross_checks(torch):
     """64 lanes of each of this slice's problems in float64, card against
     CPU (the paths' per-lane gate), on the fleet and on the recursive route;
@@ -1637,35 +1710,8 @@ def phase_slice_cross_checks(torch):
             gpu[route], _ = _card_vs_cpu(
                 torch, f"{label}_{route}", solve(prefer, NB_ITER, ov_fn), spec_fn,
                 x0s, U0s, kernels, True, route=route)
-        f, r = gpu["fleet"], gpu["recursive"]
-        rel = ((r.cost - f.cost).abs() / f.cost.abs()).cpu().numpy()
-        tol = np.full(rel.shape, XCHECK_REL)
-        over = np.flatnonzero(rel > XCHECK_REL)
-        out = {"phase": "recursive_vs_fleet", "config": label,
-               "batch": XCHECK_B, "dtype": "float64",
-               "same_iterations": bool(torch.equal(r.iterations, f.iterations)),
-               "same_alpha": bool(torch.equal(r.alpha, f.alpha)),
-               "cost_max_rel_diff": float(rel.max()), "tolerance": XCHECK_REL,
-               "U_max_abs_diff": float((r.U - f.U).abs().max())}
-        if over.size:
-            # the sensitive-lane rule of the card-vs-CPU checks, on the
-            # larger of the two routes' CPU spreads (each route rounds
-            # otherwise at every iteration)
-            # (`tools/route_gap.py` tests this rule's premise on the CPU)
-            spec_cpu = spec_fn(torch, torch.float64, "cpu")
-            sf, sr = (_cpu_spread(solve(prefer, NB_ITER, ov_fn), spec_cpu, x0s, U0s)
-                      for prefer in (True, False))
-            spread = np.maximum(sf, sr)
-            tol[over] = np.maximum(XCHECK_REL, XCHECK_SENS_FACTOR * spread[over])
-            out["lanes_over_1e-8"] = [
-                {"lane": int(i), "rel_diff": float(rel[i]),
-                 "cpu_spread_fleet": float(sf[i]),
-                 "cpu_spread_recursive": float(sr[i]),
-                 "tolerance": float(tol[i])} for i in over]
-        out["lanes_over_tolerance"] = [int(i) for i in np.flatnonzero(rel > tol)]
-        emit(out)
-        if out["lanes_over_tolerance"]:
-            fail(f"{label}: the recursive and fleet routes disagree on the card")
+        _routes_agree(torch, label, gpu, lambda prefer: solve(prefer, NB_ITER, ov_fn),
+                      spec_fn, x0s, U0s)
 
 
 def phase_record_recursive(torch):
@@ -1763,6 +1809,341 @@ def phase_slice_kernels(torch):
     return res
 
 
+# ---------------------------------------------------------------------------
+# this slice's configurations: AL-iLQR under the reference tutorial's state
+# bound, and the time-optimal double integrator
+# ---------------------------------------------------------------------------
+
+# bench_table.py al_h400_100it: H=400, the bound x5 <= 2 in a 14-row A (13
+# inert zero rows), 100 iterations through the staged schedule, B=8192;
+# the JAX package's own float32 median cost on its TPU (BENCH_TABLE.json):
+# a quality target, never a speed
+AL_H, AL_B, AL_NB_ITER, AL_JAX_COST = 400, 8192, 100, 8.898e-4
+AL_KP = (199, 399)
+AL_ARGS = (5, 0.25, 1.1)          # lag_update_step, penalty, scaling_factor
+AL_STAGED = dict(first_stage=45, bucket=512)
+AL_XCHECK_ITERS = 12              # the card-vs-CPU checks: two dual updates
+AL_BOUND = 2.0
+# the reference tutorial pos_orn_time_sys_2nd.py: H=50, 10 iterations
+T2_H, T2_B, T2_NB_ITER = 50, 2048, 10
+
+
+def al_spec(torch, dtype, device):
+    """bench_table.py al_h400_100it's problem: posorn, keypoints at 199 and
+    399 with precision diag(QD6), H=400, dt=0.01, limits +-10 pi."""
+    from ilqr_planner_torch.systems.keypoints import PosOrnKeypoint
+    from ilqr_planner_torch.systems.spec import make_spec
+
+    kps = [PosOrnKeypoint(*T, np.diag(QD6), k) for T, k in zip((T1, T2), AL_KP)]
+    qmax = np.ones(7) * np.pi * 10
+    return make_spec("posorn", _panda(dtype, device), kps, np.ones(7) * 1e-5,
+                     AL_H, 1, dt=0.01, q0=Q0, q_max=qmax, q_min=-qmax,
+                     dtype=dtype, device=device)
+
+
+def al_constraints(torch, dtype, device, coupled=False):
+    """A 14 x 14 with A[5, 5] = 1 and b[5] = 2 (x5 <= 2; the other rows
+    zero, inert) at every step; `coupled`: x4 + x5 <= 2 in one row (does not
+    fold). -> (Constraints, b as the initial duals)."""
+    from ilqr_planner_torch.solvers.al_ilqr import Constraints
+
+    A = np.zeros((14, 14))
+    b = np.zeros(14)
+    A[5, 5] = 1.0
+    b[5] = AL_BOUND
+    if coupled:
+        A, b = A[5:6].copy(), b[5:6].copy()
+        A[0, 4] = 1.0
+    return Constraints.uniform(A, b, AL_H, dtype=dtype, device=device), b
+
+
+def al_batch(batch):
+    """q0 = Q0 + 0.05 N(0, 1) (seed 0, bench_table.py's _q0s), U0 = 0."""
+    q0s, U0s = flagship_batch(batch)
+    return q0s, np.zeros((batch, AL_H - 1, 7))
+
+
+def timeopt2nd_spec(torch, dtype, device):
+    """tutorials/pos_orn_time_sys_2nd.py: spacetime keypoints at 24 (t=2.5,
+    Qt1) and 49 (t=5.0, Qt2) with zero velocity targets, H=50, limits +-10 pi
+    and +-10, q0 = 0."""
+    from ilqr_planner_torch.systems.keypoints import SpacetimeKeypoint
+
+    qts = (np.diag([1, 1, 1, .1, .1, .1, 1, 1, 1, 0, 0, 0, .1]),
+           np.diag([1, 1, 1, .1, .1, .1, 1, 1, 1, .1, .1, .1, .1]))
+    kps = [SpacetimeKeypoint(*T, qt, k, t, dposition=[0, 0, 0],
+                             dorientation=[0, 0, 0, 0])
+           for T, qt, k, t in zip((T1, T2), qts, (T2_H // 2 - 1, T2_H - 1),
+                                  (2.5, 5.0))]
+    return _time2_spec("posorn_time", kps, np.zeros(7), dtype, device)
+
+
+def _time2_spec(kind, kps, q0, dtype, device):
+    from ilqr_planner_torch.systems.spec import make_spec
+
+    qmax = np.ones(7) * np.pi * 10
+    return make_spec(kind, _panda(dtype, device), kps, np.ones(8) * 1e-5, T2_H,
+                     2, dt=None, q0=q0, q_max=qmax, q_min=-qmax,
+                     dq_max=np.ones(7) * 10, dq_min=-np.ones(7) * 10,
+                     dtype=dtype, device=device)
+
+
+def time2_check_spec(torch, dtype, device, kind):
+    """The JAX package's own time-optimal double-integrator tests
+    (tests/test_fleet.py) at the tutorial's H=50: one keypoint at 49, a
+    spacetime one (T1, t=2.0, Qt1, zero velocity targets) or a joint one
+    (Q0 + 0.2, t=1.5), from Q0."""
+    from ilqr_planner_torch.systems.keypoints import (AngularTimeKeypoint,
+                                                      SpacetimeKeypoint)
+
+    if kind == "posorn_time":
+        kps = [SpacetimeKeypoint(*T1, np.diag([1, 1, 1, .1, .1, .1, 1, 1, 1, 0,
+                                               0, 0, .1]), T2_H - 1, 2.0,
+                                 dposition=[0, 0, 0], dorientation=[0, 0, 0, 0])]
+    else:
+        kps = [AngularTimeKeypoint(Q0 + 0.2, np.diag([1.0] * 7 + [0.01] * 7 + [0.1]),
+                                   T2_H - 1, 1.5, dposition=np.zeros(7))]
+    return _time2_spec(kind, kps, Q0, dtype, device)
+
+
+def timeopt2nd_batch(batch):
+    """x0 = [0.05 N(0, 1) (seed 1, as bench_table.py's timeopt row), 0, 0],
+    U0 rows [0]*7 + [0.01]."""
+    rng = np.random.default_rng(1)
+    x0s = np.concatenate([0.05 * rng.normal(size=(batch, 7)),
+                          np.zeros((batch, 8))], axis=-1)
+    U0 = np.tile(np.array([0.0] * 7 + [0.01]), (T2_H - 1, 1))
+    return x0s, np.tile(U0[None], (batch, 1, 1))
+
+
+def time2_check_batch(batch):
+    """The JAX tests' lanes: x0 = [Q0 + 0.02 N(0, 1) (seed 3), 0, 0], U0
+    rows [0]*7 + [0.1]."""
+    rng = np.random.default_rng(3)
+    x0s = np.concatenate([Q0[None] + 0.02 * rng.normal(size=(batch, 7)),
+                          np.zeros((batch, 8))], axis=-1)
+    U0 = np.tile(np.array([0.0] * 7 + [0.1]), (T2_H - 1, 1))
+    return x0s, np.tile(U0[None], (batch, 1, 1))
+
+
+def _al_solve(torch, prefer_fleet=True, nb_iter=AL_NB_ITER, staged=False,
+              coupled=False):
+    """An AL solve as f(spec, x0s, U0s) (the duals b, the bound's
+    constraints in the spec's dtype and device)."""
+    from ilqr_planner_torch.parallel import solve_batch_al, solve_batch_al_staged
+
+    def f(spec, x0s, U0s, n=nb_iter):
+        cons, b = al_constraints(torch, spec.dtype, spec.device, coupled)
+        if staged:
+            return solve_batch_al_staged(spec, cons, b, {"x0": x0s}, U0s, n,
+                                         *AL_ARGS, **AL_STAGED)
+        return solve_batch_al(spec, cons, b, {"x0": x0s}, U0s, n, *AL_ARGS,
+                              prefer_fleet=prefer_fleet)
+    return f
+
+
+def _bound_violation(X):
+    """(largest x5 - 2 over lanes and steps, median over lanes of each
+    lane's largest) of trajectories X [B, H, 7]."""
+    per_lane = (X[:, :, 5].double() - AL_BOUND).amax(1).cpu().numpy()
+    return float(per_lane.max()), float(np.median(per_lane))
+
+
+def phase_al_kernel(torch):
+    """segment_backward at al_h400's shape (n=7, H=400, B=8192, inner
+    keypoint 199) with the folded bound in its streamed rows: on ~30% of the
+    steps and lanes L2[:, 5] carries the penalty 0.25 and lx[:, 5] the
+    term lam + 0.25 g, as `fleet._fold_al` adds them. -> {label: line}"""
+    from ilqr_planner_torch.ops.cuda_kernels import segment_backward as sb
+
+    hm1, kp = AL_H - 1, (AL_KP[0],)
+    P0, p0, L2, lx, U, gxx = sweep_inputs(N, N, hm1, len(kp), AL_B, seed=11)
+    rng = np.random.default_rng(12)
+    live = rng.random((hm1, AL_B)) < 0.3
+    L2[:, 5] += 0.25 * live
+    lx[:, 5] += live * (rng.uniform(0.0, 2.0, (hm1, AL_B))
+                        + 0.25 * rng.normal(size=(hm1, AL_B)))
+    out = _kernel_vs_twin(
+        torch, "segment_backward", {"n": N, "H": AL_H, "B": AL_B, "kp_inner": kp,
+                                    "folded_bound": "x5 <= 2"},
+        (P0, p0, L2, lx, U, gxx),
+        lambda *a: sb.segment_backward(*a, kp, 0.01, [1e-5] * N),
+        lambda *a: sb.segment_backward_reference(*a, kp, 0.01, [1e-5] * N),
+        2, inner=3)
+    out.update(bound(sweep_bytes(N, hm1, len(kp), AL_B, 4),
+                     sweep_flops(N, hm1, len(kp), AL_B)))
+    out["launch"] = _launch_of(
+        torch, "segment_backward", lambda dt_: sb.launch_geometry(AL_B, dt_, N),
+        lambda dt_: sb.kernel_geometry(AL_B, dt_, N))
+    return {"segment_backward H400": _gate_kernel(out)}
+
+
+def phase_al_h400(torch):
+    """al_h400 through solve_batch_al_staged at full width, float32: every
+    count at 0 just before the first staged solve; segment_backward once a
+    backward sweep of each stage (the bound folds into the stage rows),
+    nothing else; the median cost within 2x of the JAX record; the bound's
+    violation; 2 timed repeats."""
+    spec = al_spec(torch, torch.float32, "cuda")
+    q0s, U0s = al_batch(AL_B)
+    x0 = torch.as_tensor(q0s, dtype=torch.float32, device="cuda")
+    U0 = torch.as_tensor(U0s, dtype=torch.float32, device="cuda")
+    solve = _al_solve(torch, staged=True)
+
+    def run(n=AL_NB_ITER):
+        return solve(spec, x0, U0, n)
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    res = run()
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    counts = _read_counts()
+    times = []
+    for _ in range(RECURSIVE_SLICE_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = run()
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    it = res.iterations.cpu().numpy()
+    first = AL_STAGED["first_stage"]
+    # stage 1 sweeps min(max it, first stage) times; the lanes that used
+    # them all are solved again, up to their own last iteration
+    sweeps = int(it.max()) if it.max() < first else first + int(it.max())
+    worst, median_viol = _bound_violation(res.X)
+    out = {"phase": "end_to_end", "path": "al_h400", "nb_iter": AL_NB_ITER,
+           "staged": AL_STAGED,
+           **_result_summary(res, AL_B, first_s, times, counts,
+                             ((AL_B, AL_H, N), (AL_B, AL_H - 1, N),
+                              (AL_B, AL_H, 7))),
+           "iterations_p90": float(np.percentile(it, 90)),
+           "iterations_max": int(it.max()),
+           "lanes_restaged": int((it >= first).sum()),
+           "backward_sweeps": sweeps,
+           "generic_sweeps": counts["generic_sweeps"],
+           "bound_violation_max": worst,
+           "bound_violation_median_of_lane_max": median_viol,
+           "multipliers_max": float(res.multipliers.max())}
+    _gate_quality(out, "al_h400", AL_JAX_COST)
+    _gate_only("al_h400", counts, sweeps)
+    if counts["generic_sweeps"]:
+        fail(f"al_h400: the generic sweep ran {counts['generic_sweeps']} times")
+    return out, run
+
+
+def phase_timeopt2nd(torch):
+    """timeopt2nd through solve_batch at full width, float32: no kernel
+    launches (the generic sweep, once an iteration, and the plain
+    rollout); the median cost and the share of lanes whose cost is NaN (the
+    reference notebook diverges to NaN on this kind); 3 timed repeats."""
+    spec = timeopt2nd_spec(torch, torch.float32, "cuda")
+    x0s, U0s = timeopt2nd_batch(T2_B)
+    res, counts, first_s, times, run = _drive(torch, spec, x0s, U0s, T2_NB_ITER)
+    cost = res.cost.double().cpu().numpy()
+    nan = np.isnan(cost)
+    sweeps = int(res.iterations.max())
+    out = {"phase": "end_to_end", "path": "timeopt2nd", "nb_iter": T2_NB_ITER,
+           **_result_summary(res, T2_B, first_s, times, counts,
+                             ((T2_B, T2_H, 15), (T2_B, T2_H - 1, 8),
+                              (T2_B, T2_H, 15))),
+           "median_cost": float(np.median(cost[~nan])) if (~nan).any() else None,
+           "nan_share": float(nan.mean()),
+           "backward_sweeps": sweeps, "generic_sweeps": counts["generic_sweeps"],
+           "line_search_trials": counts["trials"]}
+    emit(out)
+    if not out["shapes_ok"] or nan.all():
+        fail("timeopt2nd: wrong shapes, or every lane's cost is NaN")
+    launched = [k for k in KERNELS if counts[k]]
+    if launched:
+        fail(f"timeopt2nd: kernels launched: {launched}")
+    if sweeps == 0 or counts["generic_sweeps"] != sweeps:
+        fail(f"timeopt2nd: the generic sweep ran {counts['generic_sweeps']} "
+             f"times for {sweeps} iterations")
+    return out, run
+
+
+def phase_generic_sweep_launches(torch):
+    """One line, no gate: the device launches and the wall time of one
+    generic sweep (timeopt2nd at full width, float32, on its initial
+    rollout), from a profile of that sweep alone."""
+    from ilqr_planner_torch.solvers import fleet
+
+    spec = timeopt2nd_spec(torch, torch.float32, "cuda")
+    x0s, U0s = timeopt2nd_batch(T2_B)
+    cc = fleet._Consts(spec)
+    x0 = torch.as_tensor(x0s, dtype=torch.float32, device="cuda").T.contiguous()
+    U0 = torch.as_tensor(U0s, dtype=torch.float32,
+                         device="cuda").permute(1, 2, 0).contiguous()
+    z = x0.new_zeros
+    X, U, _, _ = fleet._rollout(cc, 0.0, z((T2_H - 1, 8, 15, T2_B)),
+                                z((T2_H - 1, 8, T2_B)), z((T2_H, 15, T2_B)), U0, x0)
+    fleet._backward(cc, X, U)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.time()
+        fleet._backward(cc, X, U)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fleet._backward(cc, X, U)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(e.count for e in kernels)
+    busy_ms = sum(getattr(e, "self_device_time_total", None)
+                  or e.self_cuda_time_total for e in kernels) / 1e3
+    emit({"phase": "generic_sweep", "path": "timeopt2nd", "batch": T2_B,
+          "dtype": "float32", "steps": T2_H - 1, "device_launches": launches,
+          "launches_a_step": launches / (T2_H - 1),
+          "wall_ms_median": 1e3 * statistics.median(walls),
+          "device_busy_ms": busy_ms})
+
+
+def phase_al_cross_checks(torch):
+    """64 lanes of al_h400's problem in float64 (12 iterations, two dual
+    updates), card against CPU: the folded bound on the fleet
+    (segment_backward) and on the recursive route, the two routes against
+    each other on the card; the coupled bound x4 + x5 <= 2 on the fleet
+    (the generic sweep with the AL terms). Then posorn_time and joint_time
+    at nb_deriv 2 on the fleet (the generic sweep): one iteration without
+    line search (every lane within 1e-9), four with (the spread rule)."""
+    q0s, U0s = al_batch(XCHECK_B)
+    gpu = {}
+    for prefer, kernels in ((True, ("segment_backward",)), (False, ())):
+        route = "fleet" if prefer else "recursive"
+        gpu[route], _ = _card_vs_cpu(
+            torch, f"al_h400_{route}", _al_solve(torch, prefer, AL_XCHECK_ITERS),
+            al_spec, q0s, U0s, kernels, True, route=route,
+            nb_iter=AL_XCHECK_ITERS)
+    _routes_agree(torch, "al_h400", gpu,
+                  lambda prefer: _al_solve(torch, prefer, AL_XCHECK_ITERS),
+                  al_spec, q0s, U0s, nb_iter=AL_XCHECK_ITERS,
+                  multipliers_max_abs_diff=float(
+                      (gpu["fleet"].multipliers - gpu["recursive"].multipliers)
+                      .abs().max()))
+    _card_vs_cpu(torch, "al_h400_coupled_fleet",
+                 _al_solve(torch, True, AL_XCHECK_ITERS, coupled=True), al_spec,
+                 q0s, U0s, (), True, nb_iter=AL_XCHECK_ITERS,
+                 constraint="x4 + x5 <= 2")
+    from ilqr_planner_torch.parallel import solve_batch
+
+    x0s, U0s2 = time2_check_batch(XCHECK_B)
+    for kind in ("posorn_time", "joint_time"):
+        spec_fn = (lambda t, dt_, dev, k=kind: time2_check_spec(t, dt_, dev, k))
+        for nb, ls in ((1, False), (4, True)):
+            _card_vs_cpu(
+                torch, f"{kind}2_fleet",
+                lambda spec, x, u, nb=nb, ls=ls: solve_batch(
+                    spec, {"x0": x}, u, nb, line_search=ls),
+                spec_fn, x0s, U0s2, (), ls, rel=XCHECK_REL if ls else 1e-9,
+                nb_iter=nb, line_search=ls)
+
+
 def main():
     import torch
 
@@ -1773,6 +2154,8 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(os.path.dirname(LINES), exist_ok=True)
+    open(LINES, "w").close()
     t_start = time.time()
     phase_s = {}
 
@@ -1785,6 +2168,7 @@ def main():
     timed("build", phase_device_and_build)
     kv = timed("kernels_vs_twins", phase_kernels_vs_twins, torch)
     kv.update(timed("kernels_vs_twins", phase_slice_kernels, torch))
+    kv.update(timed("kernels_vs_twins", phase_al_kernel, torch))
     e2e = {}
     out_ov, run_ov, ov = timed("flagship_ov", phase_flagship_ov, torch)
     e2e["flagship_ov"] = (out_ov, run_ov)
@@ -1798,6 +2182,10 @@ def main():
                                          phase_recursive_slice, torch, path)
     timed("slice_cross_checks", phase_slice_cross_checks, torch)
     timed("slice_cross_checks", phase_record_recursive, torch)
+    e2e["al_h400"] = timed("al_h400", phase_al_h400, torch)
+    e2e["timeopt2nd"] = timed("timeopt2nd", phase_timeopt2nd, torch)
+    timed("al_time2_cross_checks", phase_al_cross_checks, torch)
+    timed("generic_sweep", phase_generic_sweep_launches, torch)
     e2e["flagship"] = timed("flagship", phase_flagship, torch)
     e2e["recursive"] = timed("recursive", phase_recursive, torch)
     for path in PATHS:
@@ -1810,7 +2198,7 @@ def main():
     timed("riccati_rounding", phase_riccati_rounding, torch)
     profiled = {}   # path -> {kernel: device ms a launch in its window}
     for path in ("flagship", "recursive", *PATHS, "flagship_ov",
-                 "sequential_h600"):
+                 "sequential_h600", "al_h400"):
         ours = timed("profiles", profile_window, torch, path, e2e[path][1])
         profiled[path] = {KERNEL_FUNCTIONS[fn]: ms for fn, (ms, _) in ours.items()}
 
@@ -1859,6 +2247,10 @@ def main():
             kv["segment_backward n3"],
             e2e["planar2d"][0]["launches"]["segment_backward"], "planar2d",
             width="n=3 H=100 (planar2d)"),
+        row("segment_backward", "segment_backward.cu", sb_src,
+            kv["segment_backward H400"],
+            e2e["al_h400"][0]["launches"]["segment_backward"], "al_h400",
+            width="n=7 H=400 B=8192 (al_h400, the bound folded)"),
         row("segment_backward_2nd", "segment_backward_2nd.cu",
             pallas + "segment_backward_2nd.py:255", kv["second"],
             e2e["posorn2nd"][0]["launches"]["segment_backward_2nd"], "posorn2nd"),

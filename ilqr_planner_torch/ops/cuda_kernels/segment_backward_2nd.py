@@ -14,9 +14,10 @@ and shared memory of a launch. Each kind and width is its own library,
 built at first use, for any chain up to `MAX_DOF`.
 `segment_backward_2nd_reference` is the same
 per-step math over [n, n, B] tensors with a Python loop over steps:
-`q_terms` (the Q blocks of the kind's structured A and B), then
-`gains_value` (Gauss-Jordan without pivoting in the JAX package's
-elimination order, and the collapsed value update).
+`ops/step_terms.py`'s `q_terms` (the Q blocks of the kind's structured A
+and B), then its `gains_value` (Gauss-Jordan without pivoting in the JAX
+package's elimination order, and the collapsed value update), the functions
+the fleet's generic sweep runs too.
 
 The kernel is built with nvcc at first use (`nvcc_build`). The wrappers run
 the twin for CPU tensors and the kernel for CUDA tensors; they never fall
@@ -30,11 +31,11 @@ import functools
 import torch
 
 from ilqr_planner_torch.ops.cuda_kernels import nvcc_build
+from ilqr_planner_torch.ops.step_terms import gains_value, mirror_upper, q_terms
 
 __all__ = ["segment_backward_2nd", "segment_backward_time1",
-           "segment_backward_2nd_reference", "q_terms", "gains_value",
-           "solve_aug", "build", "LAUNCHES", "MAX_DOF", "widths",
-           "threads_per_lane", "launch_geometry", "kernel_geometry"]
+           "segment_backward_2nd_reference", "build", "LAUNCHES", "MAX_DOF",
+           "widths", "threads_per_lane", "launch_geometry", "kernel_geometry"]
 
 # Kernel launches so far, by kind: one per CUDA call of the kind's wrapper.
 LAUNCHES = {"second": 0, "time1": 0}
@@ -88,92 +89,6 @@ def launch_geometry(kind, B, dtype, dof):
 # plain twin
 # ---------------------------------------------------------------------------
 
-def q_terms(kind, P, p, l2, lx, u, gxx, dt, b1, Rt):
-    """Pre-gain Q blocks at one step -> (Quu [m, m, B], Qux [m, n, B],
-    Qu [m, B], Qxx [n, n, B], Qx [n, B]).
-
-    'second' (n = 2m): A = I + dt E, B = [b1 I; dt I] with b1 = dt^2 / 2.
-    'time1' (n = m): A = I, B = [[s^2 I, 2 s u_q], [0, 2 s]], s = u[m-1].
-    P [n, n, B] (symmetric), p [n, B], l2/lx [n, B], u [m, B], gxx the dense
-    keypoint Hessian [n, n, B] or None; dt, b1 scalars and Rt [m, 1] in the
-    working dtype.
-    """
-    n, m = P.shape[0], u.shape[0]
-    eye_m = torch.eye(m, dtype=P.dtype, device=P.device)[:, :, None]
-    stage = torch.diag_embed(l2.T).permute(1, 2, 0)
-    if gxx is not None:
-        stage = stage + gxx
-    if kind == "second":
-        dof = m
-        # P A: dt * (q-columns) added into the dq-columns
-        PA = torch.cat([P[:, :dof], P[:, dof:] + dt * P[:, :dof]], dim=1)
-        Qux = b1 * PA[:dof] + dt * PA[dof:]
-        PB = b1 * P[:, :dof] + dt * P[:, dof:]                   # [n, m, B]
-        Quu = b1 * PB[:dof] + dt * PB[dof:] + eye_m * Rt[:, :, None]
-        Qu = Rt * u + (b1 * p[:dof] + dt * p[dof:])
-        Qx = lx + torch.cat([p[:dof], p[dof:] + dt * p[:dof]])
-        # A^T (P A): dt * (q-rows of PA) added into the dq-rows
-        Qxx = stage + torch.cat([PA[:dof], PA[dof:] + dt * PA[:dof]])
-        return Quu, Qux, Qu, Qxx, Qx
-    if kind != "time1":
-        raise ValueError(f"kind must be 'second' or 'time1', got {kind!r}")
-    dof = m - 1
-    s = u[m - 1]
-    dtk = s * s
-    h = 2.0 * s
-    g = h * u[:dof]                                              # [dof, B]
-
-    def btm(M):
-        """B^T M for M [n, c, B]."""
-        last = (g[:, None] * M[:dof]).sum(0) + h * M[n - 1]
-        return torch.cat([dtk * M[:dof], last[None]])
-
-    PB = torch.cat([dtk * P[:, :dof],
-                    ((P[:, :dof] * g[None]).sum(1) + P[:, n - 1] * h)[:, None]],
-                   dim=1)                                        # [n, m, B]
-    Qux = btm(P)
-    Quu = btm(PB) + eye_m * Rt[:, :, None]
-    Btp = torch.cat([dtk * p[:dof], ((g * p[:dof]).sum(0) + h * p[n - 1])[None]])
-    Qu = Rt * u + Btp
-    return Quu, Qux, Qu, P + stage, lx + p
-
-
-def solve_aug(M, R):
-    """Gauss-Jordan without pivoting: M^-1 R for M [m, m, B], R [m, c, B],
-    eliminating pivot by pivot in the JAX package's order."""
-    A, X = M.clone(), R.clone()
-    m = A.shape[0]
-    for k in range(m):
-        piv = 1.0 / A[k, k]
-        A[k] = A[k] * piv
-        X[k] = X[k] * piv
-        fac = A[:, k].clone()
-        fac[k] = 0.0                      # row k keeps its values
-        A = A - fac[:, None] * A[k][None]
-        X = X - fac[:, None] * X[k][None]
-    return X
-
-
-def gains_value(Quu, Qux, Qu, Qxx, Qx, reg):
-    """Regularized gains and the collapsed value update -> (P1 [n, n, B],
-    p1 [n, B], K [m, n, B], d [m, B]): with (Quu + reg I)[S | s] = [Qux | Qu],
-    K = -S, d = -s, P1 = Qxx + Qux^T K - reg K^T K (upper triangle,
-    mirrored) and p1 = Qx + Qux^T d - reg K^T d."""
-    m, n = Qux.shape[0], Qux.shape[1]
-    eye_m = torch.eye(m, dtype=Quu.dtype, device=Quu.device)[:, :, None]
-    sol = solve_aug(Quu + reg * eye_m, torch.cat([Qux, Qu[:, None]], dim=1))
-    K, d = -sol[:, :n], -sol[:, n]
-    P1 = (Qxx + (Qux[:, :, None] * K[:, None]).sum(0)
-          - reg * (K[:, :, None] * K[:, None]).sum(0))
-    p1 = Qx + (Qux * d[:, None]).sum(0) - reg * (K * d[:, None]).sum(0)
-    return _mirror_upper(P1), p1, K, d
-
-
-def _mirror_upper(P):
-    lower = torch.ones(P.shape[:2], dtype=torch.bool, device=P.device).tril(-1)
-    return torch.where(lower[:, :, None], P.transpose(0, 1), P)
-
-
 def _params(kind, dt, Rt, reg, dtype, dev):
     """(dt, dt^2 / 2, reg, Rt...) rounded once to the working dtype: the
     kernel's parameter vector ('time1' has no fixed step: dt = 0)."""
@@ -197,7 +112,7 @@ def segment_backward_2nd_reference(kind, P0, p0, L2, lx, U, gxx, kp_steps, dt,
     params = _params(kind, dt, Rt, reg, P0.dtype, P0.device)
     dt_t, b1, reg_t, Rt_t = params[0], params[1], params[2], params[3:, None]
     slot = {int(k): i for i, k in enumerate(kp_steps)}
-    P, p = _mirror_upper(P0), p0
+    P, p = mirror_upper(P0), p0
     Ks = P0.new_empty((Hm1, m, n, B))
     ds = P0.new_empty((Hm1, m, B))
     for t in range(Hm1 - 1, -1, -1):

@@ -1,7 +1,8 @@
 """Scenario batching: one call solves a batch of problems on one device.
 
-PyTorch counterpart of `solve_batch`, `solve_batch_staged` and `batch_specs`
-in the JAX package's `parallel/mesh.py`. A spec in the fleet's scope whose
+PyTorch counterpart of `solve_batch`, `solve_batch_staged`,
+`solve_batch_al`, `solve_batch_al_staged` and `batch_specs` in the JAX
+package's `parallel/mesh.py`. A spec in the fleet's scope whose
 per-scenario leaves are the initial state and the fleet's keypoint
 overrides (`FLEET_OVERRIDES`) goes to the lane-major fleet solver
 (`solvers/fleet.py`); built solvers are memoized by the spec's content, the
@@ -9,9 +10,12 @@ override names and `record` in a 32-entry LRU. `prefer_fleet=False`, and
 any other spec, go to the recursive solver run over the batch
 (`solvers/ilqr.py::_solve_impl`, the counterpart of the JAX package's vmap
 over its single-problem solve), with the overridden leaves batched on the
-spec (`batch_specs`). The route follows from the spec, the override names
-and `prefer_fleet` alone: an error in the fleet raises, it is never
-answered by the other solver.
+spec (`batch_specs`). AL-iLQR routes alike: the AL fleet
+(`fleet.make_fleet_solver_al`) takes a spec in the fleet's scope with
+shared constraints and only the initial state per scenario, the batched
+`solvers/al_ilqr.py` everything else. The route follows from the spec, the
+override names, the constraints' shape and `prefer_fleet` alone: an error
+in the fleet raises, it is never answered by the other solver.
 """
 
 import dataclasses
@@ -21,12 +25,14 @@ from typing import Dict
 
 import torch
 
-from ilqr_planner_torch.solvers import ilqr
+from ilqr_planner_torch.solvers import al_ilqr, ilqr
 from ilqr_planner_torch.solvers.fleet import (FLEET_OVERRIDES, fleet_supported,
-                                              make_fleet_solver)
+                                              make_fleet_solver,
+                                              make_fleet_solver_al)
 from ilqr_planner_torch.systems.spec import Spec, split_overrides
 
-__all__ = ["solve_batch", "solve_batch_staged", "batch_specs"]
+__all__ = ["solve_batch", "solve_batch_staged", "solve_batch_al",
+           "solve_batch_al_staged", "batch_specs"]
 
 _INITIAL = ("q0", "x0")
 
@@ -93,20 +99,25 @@ def _fleet_cache_put(key, solver):
         _fleet_cache.popitem(last=False)
 
 
-def _spec_fingerprint(spec: Spec):
-    """Content hash of a Spec: its static fields, device and every tensor."""
+def _digest(named):
+    """sha1 of (name, tensor) pairs: each one's dtype, shape and bytes."""
     h = hashlib.sha1()
-    for name, t in spec.tensors().items():
-        a = t.detach().cpu().numpy()
+    for name, t in named:
+        a = torch.as_tensor(t).detach().cpu().numpy()
         h.update(name.encode())
         h.update(str(a.dtype).encode())
         h.update(str(a.shape).encode())
         h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _spec_fingerprint(spec: Spec):
+    """Content hash of a Spec: its static fields, device and every tensor."""
     robots = [s.robot.kind if s.robot is not None else None
               for s in (spec.subs or (spec,))]
     static = (spec.kind, spec.nb_deriv, spec.horizon, spec.limits_set,
               tuple(robots), str(spec.device))
-    return static, h.hexdigest()
+    return static, _digest(spec.tensors().items())
 
 
 def _fleet_dispatch(spec: Spec, overrides) -> tuple:
@@ -190,13 +201,27 @@ def solve_batch_staged(spec: Spec, overrides, U0s, nb_iter: int,
             "solve_batch(record=True)")
     first_stage = min(int(first_stage), int(nb_iter))
     res1 = solve_batch(spec, overrides, U0s, first_stage, **kw)
+    idx, idx_p = _restage_lanes(res1, first_stage, nb_iter, bucket, spec.device)
+    if idx is None:
+        return res1
+    ov2, U0_2 = _gather((dict(overrides), U0s), idx_p)
+    return _scatter(res1, solve_batch(spec, ov2, U0_2, nb_iter, **kw), idx)
+
+
+def _restage_lanes(res1, first_stage, nb_iter, bucket, device):
+    """The lanes of a first-stage result that used every iteration (None
+    when no second stage is needed) and their indices padded with copies of
+    the first to a multiple of `bucket`."""
     idx = torch.nonzero(res1.iterations >= first_stage).flatten()
     if idx.numel() == 0 or first_stage >= nb_iter:
-        return res1
+        return None, None
     pad = (-idx.numel()) % bucket
-    idx_p = torch.cat([idx, idx[:1].expand(pad)]).to(spec.device)
-    ov2, U0_2 = _gather((dict(overrides), U0s), idx_p)
-    res2 = solve_batch(spec, ov2, U0_2, nb_iter, **kw)
+    return idx, torch.cat([idx, idx[:1].expand(pad)]).to(device)
+
+
+def _scatter(res1, res2, idx):
+    """res1 with the lanes idx replaced by the first len(idx) lanes of res2,
+    field by field (None fields stay None)."""
     keep = idx.numel()
     out = {}
     for f in dataclasses.fields(res1):
@@ -208,3 +233,86 @@ def solve_batch_staged(spec: Spec, overrides, U0s, nb_iter: int,
         a[idx.to(a.device)] = b[:keep]
         out[f.name] = a
     return type(res1)(**out)
+
+
+def _as_constraints(spec: Spec, constraints) -> al_ilqr.Constraints:
+    """The constraints' A and b as tensors in the spec's dtype and device."""
+    return al_ilqr.Constraints(*(
+        torch.as_tensor(a, dtype=spec.dtype, device=spec.device)
+        for a in (constraints.A, constraints.b)))
+
+
+def solve_batch_al(spec: Spec, constraints, lam0, overrides, U0s,
+                   nb_iter: int, lag_update_step: int, penalty: float,
+                   scaling_factor: float, line_search: bool = True,
+                   early_stop: bool = True, prefer_fleet: bool = True):
+    """Solve a scenario batch of AL-iLQR problems on the spec's device.
+
+    constraints: an `al_ilqr.Constraints`, shared by every scenario (A
+    [H-1, nc, nx+nu], b [H-1, nc]) or per scenario (a leading axis B).
+    lam0: [nc], [H-1, nc] or per scenario [B, H-1, nc]. overrides and U0s
+    as in `solve_batch`. Returns an ALILQRResult with a leading scenario
+    axis.
+
+    A spec in the fleet's scope with shared constraints and no per-scenario
+    leaf but the initial state runs the AL fleet
+    (`fleet.make_fleet_solver_al`); `prefer_fleet=False`, and everything
+    else, the batched recursive AL solver (`solvers.al_ilqr`) with the
+    overridden leaves on the spec (`batch_specs`). The two routes agree to
+    rounding.
+    """
+    U0s = torch.as_tensor(U0s, dtype=spec.dtype, device=spec.device)
+    if U0s.dim() != 3 or tuple(U0s.shape[1:]) != (spec.horizon - 1, spec.nu):
+        raise ValueError(f"U0s must be [B, {spec.horizon - 1}, {spec.nu}], got "
+                         f"{tuple(U0s.shape)}")
+    cons = _as_constraints(spec, constraints)
+    x0s = _fleet_x0s(spec, overrides, U0s)
+    lam0 = torch.as_tensor(lam0, dtype=spec.dtype, device=spec.device)
+    if (prefer_fleet and cons.A.dim() != 4 and set(overrides) <= set(_INITIAL)
+            and fleet_supported(spec)):
+        key = (_spec_fingerprint(spec), "al", int(nb_iter), int(lag_update_step),
+               float(penalty), float(scaling_factor), bool(line_search),
+               bool(early_stop), _digest((("A", cons.A), ("b", cons.b))))
+        solver = _fleet_cache_get(key)
+        if solver is None:
+            solver = make_fleet_solver_al(
+                spec, cons, int(nb_iter), int(lag_update_step), float(penalty),
+                float(scaling_factor), bool(line_search), bool(early_stop))
+            _fleet_cache_put(key, solver)
+        return solver(x0s, U0s, lam0)
+    B, H = U0s.shape[0], spec.horizon
+    if lam0.dim() < 3:
+        lam0 = lam0.expand((B, H - 1) + tuple(lam0.shape[-1:]))
+    return al_ilqr._solve_impl(batch_specs(spec, overrides), cons, lam0, x0s,
+                               U0s, int(nb_iter), int(lag_update_step),
+                               float(penalty), float(scaling_factor),
+                               bool(line_search), bool(early_stop))
+
+
+def solve_batch_al_staged(spec: Spec, constraints, lam0, overrides, U0s,
+                          nb_iter: int, lag_update_step: int, penalty: float,
+                          scaling_factor: float, first_stage: int = 30,
+                          bucket: int = 512, **kw):
+    """Straggler-aware AL batch solve with the results of
+    solve_batch_al(..., nb_iter): every lane runs min(first_stage, nb_iter)
+    iterations; the lanes that used all of them are gathered (padded to a
+    multiple of `bucket` with copies of the first) with their overrides,
+    controls, per-scenario duals and per-scenario constraints, solved again
+    from their initial state with the full budget, and scattered back. A
+    lane's solve does not depend on the other lanes, and a lane that stopped
+    early stops at the same iteration under any budget."""
+    first_stage = min(int(first_stage), int(nb_iter))
+    res1 = solve_batch_al(spec, constraints, lam0, overrides, U0s, first_stage,
+                          lag_update_step, penalty, scaling_factor, **kw)
+    idx, idx_p = _restage_lanes(res1, first_stage, nb_iter, bucket, spec.device)
+    if idx is None:
+        return res1
+    cons = _as_constraints(spec, constraints)
+    lam0 = torch.as_tensor(lam0, dtype=spec.dtype, device=spec.device)
+    ov2, U0_2 = _gather((dict(overrides), U0s), idx_p)
+    lam2 = _gather(lam0, idx_p) if lam0.dim() == 3 else lam0
+    cons2 = (al_ilqr.Constraints(*_gather((cons.A, cons.b), idx_p))
+             if cons.A.dim() == 4 else cons)
+    return _scatter(res1, solve_batch_al(spec, cons2, lam2, ov2, U0_2, nb_iter,
+                                         lag_update_step, penalty,
+                                         scaling_factor, **kw), idx)

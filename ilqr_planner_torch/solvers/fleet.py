@@ -8,29 +8,40 @@ JAX package's trace-time lists of [B] vectors. Multiplying or adding the
 exact zeros and ones that the JAX lists folded away leaves every value as it
 was, so the only numerical difference is the order of the sums (~1 ulp).
 
-Per iteration: the backward sweep (`_backward`: a CUDA kernel on the card,
-its plain twin on the CPU: `ops/cuda_kernels/segment_backward.py` for first
-order, `ops/cuda_kernels/segment_backward_2nd.py` for the double integrator
-and the time-optimal kind), then the line search over alpha = 1, 1/2, ...,
-2^-10 with early exit once every lane has accepted. The LTI kinds walk it
-on the affine trial family (`_affine_family`, `_run_trials_affine`: one
-pass over the horizon, then scan-free trials); the time-optimal kinds, whose
-B depends on u, re-roll each trial (`_run_trials`): on the card every
-closed-loop rollout of theirs, the initial one included, is one launch of
-`ops/cuda_kernels/rollout_time1.py`. Lanes freeze one
-by one (early stop alpha sqrt(sum ||du||) < 1e-3 and cost < 1e-3, or the
-iteration budget); the loop ends when every lane is frozen.
+Per iteration: the backward sweep (`_backward`), then the line search over
+alpha = 1, 1/2, ..., 2^-10 with early exit once every lane has accepted.
+The sweep runs in a whole-sweep CUDA kernel on the card (its plain twin on
+the CPU) wherever the JAX package runs a Pallas kernel:
+`ops/cuda_kernels/segment_backward.py` for first order,
+`ops/cuda_kernels/segment_backward_2nd.py` for the double integrator and
+the time-optimal first-order kind; every other sweep (the time-optimal
+double integrator, AL terms that do not fold) is the generic per-step sweep
+(`ops/step_terms.py`), in plain tensor ops as the JAX package runs it in
+XLA. The LTI kinds walk the line search on the affine trial family
+(`_affine_family`, `_run_trials_affine`: one pass over the horizon, then
+scan-free trials); the time-optimal kinds, whose B depends on u, re-roll
+each trial (`_run_trials`): on the card every closed-loop rollout of the
+first-order kind, the initial one included, is one launch of
+`ops/cuda_kernels/rollout_time1.py`, and the double integrator's is a loop
+of tensor ops. Lanes freeze one by one (early stop alpha sqrt(sum ||du||)
+< 1e-3 and cost < 1e-3, or the iteration budget); the loop ends when every
+lane is frozen.
 
-Scope (`fleet_supported`): kinds 'posorn', 'joint', 'point' at nb_deriv 1
-and 2 and 'posorn_time', 'joint_time' at nb_deriv 1, on a chain robot with
-or without an object frame ('point' also on a planar robot), and
-sequential specs of them. Subsystems on one robot share one FK walk, each
-applying its own frame. Per-scenario keypoint overrides (`FLEET_OVERRIDES`)
-are bound to lanes once a solve (`_bind_ov`): only the keypoint steps are
-gathered, the scenario axis moved last. The time-optimal kinds at nb_deriv
-2 are ROADMAP Queue 1 item 3, AL-iLQR item 4.
+Scope (`fleet_supported`): kinds 'posorn', 'joint', 'point', 'posorn_time',
+'joint_time' at nb_deriv 1 and 2, on a chain robot with or without an
+object frame ('point' also on a planar robot), and sequential specs of
+them. Subsystems on one robot share one FK walk, each applying its own
+frame. Per-scenario keypoint overrides (`FLEET_OVERRIDES`) are bound to
+lanes once a solve (`_bind_ov`): only the keypoint steps are gathered, the
+scenario axis moved last.
+
+AL-iLQR (`make_fleet_solver_al`): the same sweep with the constraint terms
+of the active sets at every step, plain-cost line search, and the dual and
+penalty update masked per lane. Uniform constraints whose rows each touch
+one state coordinate and no control (axis-aligned state bounds) fold
+exactly into the streamed stage diagonal and gradient, so such a solve runs
+the unconstrained kernels.
 """
-
 import math
 
 import numpy as np
@@ -41,11 +52,13 @@ from ilqr_planner_torch.ops.cuda_kernels.rollout_time1 import rollout_time1
 from ilqr_planner_torch.ops.cuda_kernels.segment_backward import segment_backward
 from ilqr_planner_torch.ops.cuda_kernels.segment_backward_2nd import (
     segment_backward_2nd, segment_backward_time1)
+from ilqr_planner_torch.ops.step_terms import al_terms, gains_value, q_terms
+from ilqr_planner_torch.solvers.al_ilqr import ALILQRResult, Constraints
 from ilqr_planner_torch.solvers.ilqr import ILQRResult
 from ilqr_planner_torch.systems.spec import Spec, split_overrides
 
-__all__ = ["make_fleet_solver", "fleet_supported", "FLEET_OVERRIDES",
-           "TRIALS"]
+__all__ = ["make_fleet_solver", "make_fleet_solver_al", "fleet_supported",
+           "FLEET_OVERRIDES", "TRIALS", "GENERIC_SWEEPS"]
 
 # Spec leaves the fleet takes per scenario (besides q0/x0).
 FLEET_OVERRIDES = ("mu", "prec", "pos_radius", "orn_thresh")
@@ -55,21 +68,21 @@ _REG = 1e-6  # gain-elimination ridge
 # Line-search trials run by fleet solves so far (each backward sweep is one
 # iteration of the lane with the most).
 TRIALS = 0
+# Backward sweeps that ran the generic per-step sweep (no kernel) so far.
+GENERIC_SWEEPS = 0
 
 
 def _sub_ok(s: Spec) -> bool:
     if s.kind in ("joint", "joint_time"):
-        return s.nb_deriv == 1 or (s.nb_deriv == 2 and s.kind == "joint")
+        return s.nb_deriv in (1, 2)
     if s.robot is None:
         return False
     if s.kind == "point":
         return s.nb_deriv in (1, 2) and (
             s.robot.kind == "chain"
             or (s.robot.kind == "planar" and s.robot.frame is None))
-    if s.kind == "posorn":
+    if s.kind in ("posorn", "posorn_time"):
         return s.nb_deriv in (1, 2) and s.robot.kind == "chain"
-    if s.kind == "posorn_time":
-        return s.nb_deriv == 1 and s.robot.kind == "chain"
     return False
 
 
@@ -177,16 +190,12 @@ class _Consts:
     """Problem constants of a fleet solve."""
 
     def __init__(self, spec: Spec, ov_names=()):
-        if spec.time_optimal and spec.nb_deriv == 2:
-            raise NotImplementedError(
-                "the fleet's time-optimal double integrator is not ported yet "
-                "(ROADMAP Queue 1 item 3)")
         if not fleet_supported(spec):
             raise ValueError(
-                f"fleet scope: posorn/joint/point at nb_deriv 1-2 and "
-                f"posorn_time/joint_time at nb_deriv 1 (point also on a "
-                f"frameless planar robot), and sequential specs of them; got "
-                f"kind={spec.kind!r} nb_deriv={spec.nb_deriv}")
+                f"fleet scope: posorn/joint/point/posorn_time/joint_time at "
+                f"nb_deriv 1-2 (point also on a frameless planar robot), and "
+                f"sequential specs of them; got kind={spec.kind!r} "
+                f"nb_deriv={spec.nb_deriv}")
         ov_names = tuple(ov_names)
         bad = set(ov_names) - set(FLEET_OVERRIDES)
         if bad:
@@ -665,11 +674,13 @@ def _rollout(cc: _Consts, alpha, Ks, ds, Xref, Uref, x0, kpa=None):
     (X [H, n, B], U [H-1, m, B], cost [B], sum_k ||du_k|| [B]).
 
     Ks [H-1, m, n, B], ds/Uref [H-1, m, B], Xref [H, n, B], x0 [n, B]. The
-    time-optimal kind runs `rollout_time1` (the CUDA kernel for CUDA
-    tensors, its twin on the CPU); the LTI kinds integrate x' = x + dt u
-    (first order) or semi-implicit Euler (double integrator). The whole
-    solve's initial rollout is this with zero gains and alpha = 0."""
-    if cc.time:
+    time-optimal first-order kind runs `rollout_time1` (the CUDA kernel for
+    CUDA tensors, its twin on the CPU); the other kinds integrate x' = x +
+    dt u (first order) or semi-implicit Euler (double integrator; the
+    time-optimal one with the step's duration s^2, s = u[m-1], and the time
+    state advanced by it). The whole solve's initial rollout is this with
+    zero gains and alpha = 0."""
+    if cc.time and cc.nb_deriv == 1:
         X, U, du2 = rollout_time1(alpha, Ks, ds, Xref, Uref, x0)
     else:
         dt, dof = cc.dt, cc.dof
@@ -680,7 +691,13 @@ def _rollout(cc: _Consts, alpha, Ks, ds, Xref, Uref, x0, kpa=None):
         for k in range(cc.H - 1):
             du = (Ks[k] * (x - Xref[k])[None]).sum(1) + alpha * ds[k]
             u = Uref[k] + du
-            if cc.nb_deriv == 2:
+            if cc.time:
+                s = u[cc.m - 1]
+                dtk = s * s
+                q, dq, ddq = x[:dof], x[dof:2 * dof], u[:dof]
+                x = torch.cat([q + dtk * dq + (0.5 * dtk * dtk) * ddq,
+                               dq + dtk * ddq, x[2 * dof:] + dtk])
+            elif cc.nb_deriv == 2:
                 x = torch.cat([x[:dof] + dt * x[dof:] + (0.5 * dt * dt) * u,
                                x[dof:] + dt * u])
             else:
@@ -694,20 +711,82 @@ def _rollout(cc: _Consts, alpha, Ks, ds, Xref, Uref, x0, kpa=None):
 # backward sweep
 # ---------------------------------------------------------------------------
 
-def _backward(cc: _Consts, X, U, kpa=None):
+def _sweep_kind(cc: _Consts) -> str:
+    """The structured dynamics of the spec, as `ops/step_terms.py` names
+    them."""
+    if cc.time:
+        return "time2" if cc.nb_deriv == 2 else "time1"
+    return "second" if cc.nb_deriv == 2 else "first"
+
+
+def _fold_al(al, L2, lx_all):
+    """The diagonal-AL fold: where every constraint row touches one state
+    coordinate j and no control, its backward terms are exactly a stage
+    update, Qxx += coef^2 Ik at (j, j) and Qx += coef (lam + Ik g) at j, so
+    they add into the streamed L2 / lx rows of steps 0..H-2 ->
+    (L2, lx_all)."""
+    Is, lam = al["Is"], al["lam"]                     # [H-1, nc, B]
+    lig = lam + Is * al["g"]
+    add2 = torch.zeros_like(L2[:-1])
+    addx = torch.zeros_like(add2)
+    for c, j, coef in al["fold"]:
+        add2[:, j] += (coef * coef) * Is[:, c]
+        addx[:, j] += coef * lig[:, c]
+    L2, lx_all = L2.clone(), lx_all.clone()
+    L2[:-1] += add2
+    lx_all[:-1] += addx
+    return L2, lx_all
+
+
+def _generic_sweep(cc: _Consts, P, p, L2, lx, U, gxx, inner, X, al):
+    """The per-step sweep in tensor ops: `q_terms` of the spec's dynamics,
+    the AL terms where `al` is set, then `gains_value`, over the H-1 steps
+    in reverse; a keypoint step adds its dense Hessian from the slot table
+    `gxx` [n_kp, n, n, B] (slots in the order of `inner`)."""
+    global GENERIC_SWEEPS
+    GENERIC_SWEEPS += 1
+    kind = _sweep_kind(cc)
+    H, dof = cc.H, cc.dof
+    dt = 0.0 if cc.dt is None else cc.dt
+    Rt = torch.tensor(cc.Rt, dtype=X.dtype, device=X.device)[:, None]
+    slot = {k: i for i, k in enumerate(inner)}
+    dq = X[:H - 1, dof:2 * dof] if kind == "time2" else None
+    Ks = X.new_empty((H - 1, cc.m, cc.n, X.shape[-1]))
+    ds = X.new_empty((H - 1, cc.m, X.shape[-1]))
+    for t in range(H - 2, -1, -1):
+        Q = q_terms(kind, P, p, L2[t], lx[t], U[t],
+                    gxx[slot[t]] if t in slot else None, dt, 0.5 * dt * dt,
+                    Rt, None if dq is None else dq[t])
+        if al is not None:
+            cx, cu = ((al["cx"], al["cu"]) if al["uniform"]
+                      else (al["cx"][t], al["cu"][t]))
+            Q = al_terms(*Q, cx, cu, al["Is"][t], al["g"][t], al["lam"][t])
+        P, p, Ks[t], ds[t] = gains_value(*Q, _REG)
+    return Ks, ds
+
+
+def _backward(cc: _Consts, X, U, kpa=None, al=None):
     """Full backward sweep -> (Ks [H-1, m, n, B], ds [H-1, m, B]).
 
     The limit quadratics stream as per-step diagonals; the keypoint
     gradients fold into the stage-gradient rows, and the dense keypoint
     Hessians J^T P J enter only at the inner keypoint steps. The terminal
-    cost-to-go (cost at H-1 with u = 0) is built here, and the sweep runs in
-    a whole-sweep kernel for CUDA tensors, its twin on the CPU:
+    cost-to-go (cost at H-1 with u = 0) is built here. Without AL terms
+    (`al` None, or folded into the stage rows: `_fold_al`) the sweep runs
+    in a whole-sweep kernel for CUDA tensors, its twin on the CPU:
     `segment_backward` (first order, m = n), `segment_backward_2nd` (double
-    integrator, n = 2m) or `segment_backward_time1` (time-optimal, m = n).
+    integrator, n = 2m) or `segment_backward_time1` (time-optimal first
+    order, m = n); the time-optimal double integrator and AL terms that do
+    not fold run `_generic_sweep`. `al`: {"fold", "uniform", "cx", "cu"
+    (constraint rows [nc, n] / [nc, m], per step [H-1, nc, .] when not
+    uniform), "Is", "g", "lam" [H-1, nc, B]}.
     """
     H = cc.H
     Lq, L2 = _limit_arrays(cc, X)
     lx_all = -Lq
+    if al is not None and al["fold"]:
+        L2, lx_all = _fold_al(al, L2, lx_all)
+        al = None
     eye = torch.eye(cc.n, dtype=X.dtype, device=X.device)[..., None]
     P = eye * L2[H - 1][:, None]
     p = lx_all[H - 1]
@@ -725,11 +804,14 @@ def _backward(cc: _Consts, X, U, kpa=None):
         gxx = torch.stack([g for _, _, g in terms])
     else:
         gxx = X.new_zeros((0, cc.n, cc.n, X.shape[-1]))
+    kind = _sweep_kind(cc)
+    if al is not None or kind == "time2":
+        return _generic_sweep(cc, P, p, L2, lx, U, gxx, inner, X, al)
     args = (P.contiguous(), p.contiguous(), L2[:H - 1].contiguous(),
             lx.contiguous(), U.contiguous(), gxx.contiguous(), tuple(inner))
-    if cc.time:
+    if kind == "time1":
         return segment_backward_time1(*args, cc.Rt, _REG)
-    if cc.nb_deriv == 2:
+    if kind == "second":
         return segment_backward_2nd(*args, cc.dt, cc.Rt, _REG)
     return segment_backward(*args, cc.dt, cc.Rt, _REG)
 
@@ -975,5 +1057,123 @@ def make_fleet_solver(spec: Spec, nb_iter: int, line_search: bool = True,
             progress=({"cost": rec_cost.T, "alpha": rec_alpha.T}
                       if record else None),
         )
+
+    return solve
+
+
+# ---------------------------------------------------------------------------
+# AL-iLQR
+# ---------------------------------------------------------------------------
+
+def _al_plan(constraints: Constraints, n: int, np_dtype) -> dict:
+    """The host-side plan of a constraint set A [H-1, nc, n+m], b [H-1, nc]
+    -> {"nc", "uniform" (the same rows at every step), "fold" (None, or
+    (row c, state coordinate j, coefficient) for each row that folds:
+    `_fold_al`), "A", "b" (numpy, in the spec's dtype)}. The fold needs
+    uniform rows that touch no control and at most one state coordinate
+    each; an all-zero row is inert and folds to nothing."""
+    A = np.asarray(torch.as_tensor(constraints.A).detach().cpu().numpy(), np_dtype)
+    b = np.asarray(torch.as_tensor(constraints.b).detach().cpu().numpy(), np_dtype)
+    nc = A.shape[1]
+    uniform = bool(np.all(A == A[0]) and np.all(b == b[0]))
+    fold = None
+    if (uniform and np.all(A[0, :, n:] == 0)
+            and np.all(np.count_nonzero(A[0, :, :n], axis=1) <= 1)):
+        fold = [(c, int(nz[0]), float(A[0, c, nz[0]])) for c in range(nc)
+                for nz in [np.nonzero(A[0, c, :n])[0]] if nz.size == 1] or None
+    return {"nc": nc, "uniform": uniform, "fold": fold, "A": A, "b": b}
+
+
+def make_fleet_solver_al(spec: Spec, constraints: Constraints, nb_iter: int,
+                         lag_update_step: int, penalty: float,
+                         scaling_factor: float, line_search: bool = True,
+                         early_stop: bool = True):
+    """Build a lane-major AL-iLQR solve: (x0s [B, n], U0s [B, H-1, nu],
+    lam0 [nc] | [H-1, nc] | [B, H-1, nc]) -> ALILQRResult with a leading
+    scenario axis, on the spec's device. Per lane it is `al_ilqr.solve`:
+    the line search accepts on the plain cost, the active sets come from
+    the accepted trajectory with the pre-update lam and penalty, the
+    penalty (x scaling_factor) and then lam = max(0, lam + penalty g) update
+    every `lag_update_step` iterations, and a lane stops early at
+    alpha sqrt(sum ||du||) < 1e-3 (no cost condition). The constraints
+    A [H-1, nc, n+m], b [H-1, nc] are shared by every lane. The line search
+    is `make_fleet_solver`'s default: the affine trials on the LTI kinds,
+    re-rollouts on the time-optimal kinds."""
+    cc = _Consts(spec)
+    run_trials = _run_trials if cc.time else _run_trials_affine
+    n, m, H = cc.n, cc.m, cc.H
+    a_sched = _alpha_schedule(line_search)
+    plan = _al_plan(constraints, n, np.dtype(str(cc.dtype).removeprefix("torch.")))
+    A = torch.as_tensor(plan["A"], device=cc.device)
+    b = torch.as_tensor(plan["b"], device=cc.device)[:, :, None]
+    al_static = {"fold": plan["fold"], "uniform": plan["uniform"],
+                 "cx": A[0, :, :n] if plan["uniform"] else A[:, :, :n],
+                 "cu": A[0, :, n:] if plan["uniform"] else A[:, :, n:]}
+    # the violation's products, one a state or control coordinate that some
+    # row touches (the temporaries scale with those coordinates, not with
+    # nc x (n+m) per lane and step); elementwise, so no reduced-precision
+    # matmul enters g, where AL converges
+    cols = [j for j in range(n + m) if np.any(plan["A"][:, :, j] != 0)]
+
+    def active_sets(X, U, lam, pen):
+        """Penalty-scaled active sets and violations [H-1, nc, B]."""
+        XU = torch.cat([X[:-1], U], dim=1)                  # [H-1, n+m, B]
+        g = -b.expand(H - 1, plan["nc"], X.shape[-1])
+        if cols:
+            acc = A[:, :, cols[0], None] * XU[:, None, cols[0]]
+            for j in cols[1:]:
+                acc = acc + A[:, :, j, None] * XU[:, None, j]
+            g = acc - b
+        inactive = (g < 0) & (lam == 0)
+        return pen * torch.where(inactive, 0.0, 1.0).to(X.dtype), g
+
+    def solve(x0s, U0s, lam0):
+        global TRIALS
+        x0 = torch.as_tensor(x0s, dtype=cc.dtype, device=cc.device).T.contiguous()
+        U0 = torch.as_tensor(U0s, dtype=cc.dtype,
+                             device=cc.device).permute(1, 2, 0).contiguous()
+        B = x0.shape[-1]
+        lam = torch.as_tensor(lam0, dtype=cc.dtype, device=cc.device)
+        if lam.dim() == 3:                    # per-scenario duals
+            lam = lam.permute(1, 2, 0)
+        else:
+            lam = lam.expand(H - 1, plan["nc"])[..., None]
+        lam = lam.expand(H - 1, plan["nc"], B).contiguous()
+        pen = torch.full((B,), penalty, dtype=cc.dtype, device=cc.device)
+        X, U, cost, _ = _rollout(cc, 0.0, x0.new_zeros((H - 1, m, n, B)),
+                                 x0.new_zeros((H - 1, m, B)),
+                                 x0.new_zeros((H, n, B)), U0, x0)
+        Is, g = active_sets(X, U, lam, pen)
+        it = torch.zeros(B, dtype=torch.int32, device=cc.device)
+        done = torch.zeros(B, dtype=torch.bool, device=cc.device)
+        while True:
+            active = ~done & (it < nb_iter)
+            if not bool(active.any()):
+                break
+            Ks, ds = _backward(cc, X, U, None, dict(al_static, Is=Is, g=g, lam=lam))
+            Xn, Un, costn, du_acc, alpha, n_trials = run_trials(
+                cc, a_sched, X, U, cost, Ks, ds, x0, ~active)
+            TRIALS += n_trials
+            Isn, gn = active_sets(Xn, Un, lam, pen)
+            update = ((it + 1) % lag_update_step) == 0
+            pen_n = torch.where(update, pen * scaling_factor, pen)
+            lam_n = torch.where(update, torch.clamp_min(lam + pen_n * gn, 0.0),
+                                lam)
+            new_done = done
+            if early_stop:
+                new_done = done | (alpha * torch.sqrt(du_acc) < 1e-3)
+            X = torch.where(active, Xn, X)
+            U = torch.where(active, Un, U)
+            Is = torch.where(active, Isn, Is)
+            g = torch.where(active, gn, g)
+            cost = torch.where(active, costn, cost)
+            lam = torch.where(active, lam_n, lam)
+            pen = torch.where(active, pen_n, pen)
+            it = torch.where(active, it + 1, it)
+            done = torch.where(active, new_done, done)
+        return ALILQRResult(X=X.permute(2, 0, 1), fX=_fx_traj(cc, X),
+                            U=U.permute(2, 0, 1),
+                            multipliers=lam.permute(2, 0, 1), cost=cost,
+                            iterations=it)
 
     return solve

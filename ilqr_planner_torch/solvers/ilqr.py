@@ -204,9 +204,8 @@ def _backward(spec: Spec, X, fX, U, As, Bs, Js, pscan: bool = False,
     if pscan:
         raise NotImplementedError(
             "backward='pscan' is not ported yet (ROADMAP Queue 1 item 11)")
-    H = spec.horizon
-    ks = torch.arange(H, device=X.device)
     if _riccati_route(spec):
+        ks = torch.arange(spec.horizon, device=X.device)
         e = funcs.residual(spec, fX, ks)
         ld, lq = _limit_diag(spec, X)
         prec = spec.prec if spec.kind != "sequential" else funcs.prec_at(spec, ks)
@@ -214,10 +213,17 @@ def _backward(spec: Spec, X, fX, U, As, Bs, Js, pscan: bool = False,
         return riccati_backward(
             Js.contiguous(), e.contiguous(), ld.contiguous(), lq.contiguous(),
             U.contiguous(), prec.contiguous(), Rt, dt, _REG)
+    return _backward_core(spec, As, Bs, *_stage_terms(spec, X, fX, U, Js))
+
+
+def _stage_terms(spec: Spec, X, fX, U, Js):
+    """The quadratized costs of a batch of trajectories -> (l_x [B, H-1, nx],
+    l_u [B, H-1, nu], l_xx [B, H-1, nx, nx]) of steps 0..H-2 and the
+    terminal (lN_x, lN_xx), the stage terms at H-1 with u = 0."""
+    ks = torch.arange(spec.horizon, device=X.device)
     U_pad = torch.cat([U, torch.zeros_like(U[:, :1])], dim=1)  # u = 0 at H-1
     l_x, l_u, l_xx = funcs.cost_gradients(spec, X, fX, Js, U_pad, ks)
-    return _backward_core(spec, As, Bs, l_x[:, :-1], l_u[:, :-1], l_xx[:, :-1],
-                          l_x[:, -1], l_xx[:, -1])
+    return l_x[:, :-1], l_u[:, :-1], l_xx[:, :-1], l_x[:, -1], l_xx[:, -1]
 
 
 def _backward_core(spec: Spec, As, Bs, l_x, l_u, l_xx, lN_x, lN_xx,
@@ -287,29 +293,57 @@ def _record(buf, it, active, value):
                        value[:, None], buf)
 
 
+def _alpha_schedule(line_search: bool):
+    """The line-search trials: alpha = 1, 1/2, ..., 2^-10, or 1 alone."""
+    return [2.0 ** -i for i in range(11)] if line_search else [1.0]
+
+
+def _trial(spec: Spec, a, Ks, ds, Xref, Uref, x0s):
+    """One closed-loop rollout at alpha = a -> (X, U, cost [B], sum_k
+    ||du_k|| [B]); the forward map alone prices it (no Jacobian)."""
+    X, U, du_acc = _integrate(spec, a, Ks, ds, Xref, Uref, x0s)
+    return X, U, _traj_cost(spec, X, funcs.fx(spec, X), U), du_acc
+
+
+def _line_search(spec: Spec, a_sched, Ks, ds, X, U, cost, x0s, active):
+    """Backtracking over `a_sched`: each active lane adopts its first trial
+    with a strictly lower, non-NaN cost, and the last trial when none
+    passes; frozen lanes start as accepted, and the walk stops once every
+    lane has accepted. -> (X, U, cost, sum ||du||, alpha)."""
+    global TRIALS
+    accepted = ~active
+    best = (X, U, cost, torch.zeros_like(cost), torch.ones_like(cost))
+    for a in a_sched:
+        if bool(accepted.all()):
+            break
+        Xt, Ut, ct, dut = _trial(spec, a, Ks, ds, X, U, x0s)
+        TRIALS += 1
+        ok = (ct < cost) & ~torch.isnan(ct)
+        take = ~accepted
+        best = tuple(torch.where(_lead(take, new), new, old) for old, new
+                     in zip(best, (Xt, Ut, ct, dut, torch.full_like(ct, a))))
+        accepted = accepted | ok
+    return best
+
+
 def _solve_impl(spec: Spec, x0s, U0s, nb_iter: int, line_search: bool,
                 early_stop: bool, record: bool = False) -> ILQRResult:
     """The batched solve: x0s [B, nx], U0s [B, H-1, nu] on the spec's device
     -> ILQRResult with a leading scenario axis; `record` fills `progress`
     ({"cost", "alpha"} [B, nb_iter], NaN beyond each lane's iterations)."""
-    global TRIALS
     H, nu, nx = spec.horizon, spec.nu, spec.nx
     B = x0s.shape[0]
     dev = x0s.device
-
-    def trial(a, Ks, ds, Xref, Uref):
-        X, U, du_acc = _integrate(spec, a, Ks, ds, Xref, Uref, x0s)
-        return X, U, _traj_cost(spec, X, funcs.fx(spec, X), U), du_acc
-
     host = _host_consts(spec)
 
     Ks = x0s.new_zeros((B, H - 1, nu, nx))
     ds = x0s.new_zeros((B, H - 1, nu))
-    X, U, cost, _ = trial(0.0, Ks, ds, x0s.new_zeros((B, H, nx)), U0s)
+    X, U, cost, _ = _trial(spec, 0.0, Ks, ds, x0s.new_zeros((B, H, nx)), U0s,
+                           x0s)
     it = torch.zeros(B, dtype=torch.int32, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     alpha = torch.ones_like(cost)
-    a_sched = [2.0 ** -i for i in range(11)] if line_search else [1.0]
+    a_sched = _alpha_schedule(line_search)
     if record:
         rec_cost = cost.new_full((B, nb_iter), float("nan"))
         rec_alpha = rec_cost.clone()
@@ -322,21 +356,8 @@ def _solve_impl(spec: Spec, x0s, U0s, nb_iter: int, line_search: bool,
         As, Bs = _per_step_AB(spec, X, U)
         Ks_n, ds_n = _backward(spec, X, fX, U, As, Bs, Js, host=host)
 
-        # Backtracking: the first passing alpha is adopted per lane, the
-        # last trial on floor-out; frozen lanes start as accepted.
-        accepted = ~active
-        best = (X, U, cost, torch.zeros_like(cost), torch.ones_like(cost))
-        for a in a_sched:
-            if bool(accepted.all()):
-                break
-            Xt, Ut, ct, dut = trial(a, Ks_n, ds_n, X, U)
-            TRIALS += 1
-            ok = (ct < cost) & ~torch.isnan(ct)
-            take = ~accepted
-            best = tuple(torch.where(_lead(take, new), new, old) for old, new
-                         in zip(best, (Xt, Ut, ct, dut, torch.full_like(ct, a))))
-            accepted = accepted | ok
-        Xn, Un, costn, du_acc, alpha_n = best
+        Xn, Un, costn, du_acc, alpha_n = _line_search(
+            spec, a_sched, Ks_n, ds_n, X, U, cost, x0s, active)
 
         new_done = done
         if early_stop:

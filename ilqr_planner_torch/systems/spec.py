@@ -13,8 +13,8 @@ Kinds, first order (nb_deriv=1) and double integrator (nb_deriv=2):
   'joint_time'   'joint' likewise
   'sequential'   subsystems sharing the state and control, their targets
                  concatenated (`sequential_spec`)
-The time-optimal kinds run at nb_deriv=1 only here (nb_deriv=2 is ROADMAP
-Queue 1 item 7, still open).
+A time-optimal state is [q, t] (first order) or [q, dq, t] (double
+integrator), its control [dq or ddq, s] with the step's duration s^2.
 """
 
 import dataclasses
@@ -171,10 +171,6 @@ def make_spec(kind: str, robot: Robot, keypoints, Rt_diag, horizon: int,
     time_axis = kind.endswith("_time")
     if nb_deriv not in (1, 2):
         raise ValueError(f"nb_deriv must be 1 or 2, got {nb_deriv}")
-    if time_axis and nb_deriv == 2:
-        raise NotImplementedError(
-            f"kind {kind!r} at nb_deriv=2 is not ported yet (ROADMAP Queue 1 "
-            f"item 7: the time-optimal double integrator)")
     for kp in keypoints:
         if kp.TAG not in _KIND_CHECK[kind]:
             raise ValueError(f"[{kind}] Wrong keypoint type: got {kp.TAG}")

@@ -1,9 +1,9 @@
 """Carry parameters across from numpy arrays.
 
 A test pulls the arrays out of a JAX `KinematicChain`, `PlanarRobot`, robot
-frame or `Spec` with `np.asarray` and builds the port's counterpart here, so
-both packages compute on exactly the same constants without the port
-importing JAX.
+frame, `Spec` or `Constraints` with `np.asarray` and builds the port's
+counterpart here, so both packages compute on exactly the same constants
+without the port importing JAX.
 """
 
 import numpy as np
@@ -12,11 +12,12 @@ import torch
 from ilqr_planner_torch.models.chain import KinematicChain
 from ilqr_planner_torch.models.planar import PlanarRobot
 from ilqr_planner_torch.models.robot import Robot
+from ilqr_planner_torch.solvers.al_ilqr import Constraints
 from ilqr_planner_torch.systems.spec import Spec
 from ilqr_planner_torch.utils.device import resolve_device
 
 __all__ = ["chain_from_arrays", "robot_from_arrays", "spec_from_arrays",
-           "spec_like"]
+           "spec_like", "constraints_like"]
 
 _STATIC = ("kind", "nb_deriv", "horizon", "limits_set")
 
@@ -96,3 +97,11 @@ def spec_like(src, *, device=None) -> Spec:
                    else np.asarray(getattr(src, k)) for k in _LEAVES})
     subs = [spec_like(s, device=dev) for s in getattr(src, "subs", ())]
     return spec_from_arrays(fields, robot, subs=subs, device=dev)
+
+
+def constraints_like(src, *, device=None) -> Constraints:
+    """Constraints with the content of `src`, any object with the attributes
+    A and b (a JAX package Constraints, say), each array in its own dtype."""
+    dev = resolve_device(device)
+    return Constraints(A=_tensor(np.asarray(src.A), None, dev),
+                       b=_tensor(np.asarray(src.b), None, dev))

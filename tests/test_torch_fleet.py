@@ -177,29 +177,41 @@ def test_make_spec_without_device_needs_a_card():
 
 
 def test_out_of_scope_raises_not_implemented():
+    from ilqr_planner_torch.solvers import al_ilqr, ilqr
+    from ilqr_planner_torch.solvers.fleet import fleet_supported
+
     _, spec = _specs("joint")
     robot = spec.robot
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        make_spec("posorn_time", robot, [], np.ones(8) * 1e-5, H, 2,
-                  device="cpu")
+    U0 = np.zeros((H - 1, 7))
+    # what is still not ported: the parallel-scan backward (ROADMAP Queue 1
+    # item 11) and the guard / callback hooks of both solvers (item 15)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        ilqr.solve(spec, U0, 2, backward="pscan")
+    cons = al_ilqr.Constraints.uniform(np.zeros((1, 14)), np.zeros(1), H,
+                                       device="cpu")
+    for hook in ({"guard": True}, {"callback": print}):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
+            al_ilqr.solve(spec, cons, np.zeros(1), U0, 2, 1, 0.25, 1.1, **hook)
     with pytest.raises(ValueError, match="nb_deriv must be 1 or 2"):
         make_spec("joint", robot, [], np.ones(7) * 1e-5, H, 3, dt=0.1,
                   device="cpu")
     with pytest.raises(ValueError, match="unknown system kind"):
         make_spec("sequential", robot, [], np.ones(7) * 1e-5, H, 1, dt=0.1,
                   device="cpu")
+    # the time-optimal double integrator (item 3) is in: make_spec and the
+    # fleet take it
+    spec_t2 = make_spec("posorn_time", robot, [], np.ones(8) * 1e-5, H, 2,
+                        device="cpu")
+    assert spec_t2.nx == 15 and fleet_supported(spec_t2)
+    make_fleet_solver(spec_t2, 2)
     # what the fleet still does not take: a leaf outside FLEET_OVERRIDES, a
-    # posorn target on a planar robot, the time-optimal double integrator
-    # (ROADMAP Queue 1 item 3); the staged schedule does not record
+    # posorn target on a planar robot; the staged schedule does not record
     with pytest.raises(ValueError, match="unsupported fleet overrides"):
         make_fleet_solver(spec, 2, overrides=("dt",))
     planar = Robot.from_planar(PlanarRobot(torch.ones(3, dtype=torch.float64)))
     with pytest.raises(ValueError, match="fleet scope"):
         make_fleet_solver(dataclasses.replace(spec, kind="posorn",
                                               robot=planar), 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        make_fleet_solver(dataclasses.replace(spec, kind="joint_time",
-                                              nb_deriv=2), 2)
     U0s = np.zeros((2, H - 1, 7))
     with pytest.raises(NotImplementedError, match="not ported"):
         solve_batch(spec, {"dt": np.zeros(2)}, U0s, 2)
