@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Twelve paths, each through `ilqr_planner_torch.parallel.solve_batch`
-(al_h400: `solve_batch_al_staged`), float32:
+Fourteen paths, each through `ilqr_planner_torch.parallel.solve_batch`
+(al_h400: `solve_batch_al_staged`; batch_gn, batch_cp: `solve_batch_gn`),
+float32:
   flagship   position + quaternion via-points at steps 49 and 99, H=100,
              dt=0.1, 10 iterations, B=36864, 7-DoF Panda (backward:
              segment_backward);
@@ -38,7 +39,13 @@ Twelve paths, each through `ilqr_planner_torch.parallel.solve_batch`
              spacetime keypoints at 24 (t=2.5) and 49 (t=5), H=50, 10
              iterations, B=2048 (the fleet's generic sweep and rollout in
              tensor ops: no kernel; most lanes diverge to NaN, as the
-             reference notebook does).
+             reference notebook does);
+  batch_gn, batch_cp  the batch Gauss-Newton solver through
+             `parallel.solve_batch_gn` (bench_table.py:202-235, uncut): the
+             flagship problem, B=4096, 10 iterations, q0 = Q0 + 0.05 N(0, 1)
+             (seed 0), u0 = 0; batch_cp with the unit-step primitives
+             kron(unitstep(99, 2), I7) (no kernel: dense library calls, as
+             in the JAX package).
 
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device and build: the card's name and power limit; the nvcc build of
@@ -63,7 +70,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
      launched: once per backward sweep, and for the rollout once per
      line-search trial plus once for the solve's initial rollout; no
      backward kernel of another path may have launched), then the median of
-     3 timed repeats with the spread, solves/s, median cost and iterations;
+     2 timed repeats with the spread, solves/s, median cost and iterations;
      sequential_h600 and planar2d within 2x of the JAX package's float32
      median cost; the recursive runs of riccati once a backward sweep;
      flagship_ov's record ends at each lane's final cost, NaN
@@ -117,6 +124,24 @@ Phases (each prints one JSON line; any failure exits non-zero):
      time, the top kernels, and the device time a launch of the path's
      hand-written kernels on the solve's own data (the full table goes to
      chiprun_out/profile_<path>.txt).
+  8. (no hand-written kernel on these paths) batch_gn and batch_cp
+     at full width: one warm-up, 3 timed repeats, solves/s with the
+     spread, median cost and iterations, within 2x of the JAX record
+     (BENCH_TABLE.json), no kernel launch, and one profiled solve's
+     launches and device busy share; 64 lanes of each in float64 card
+     against CPU (the per-lane rule of phase 4, u within 1e-8 of max |u|),
+     the reference-shaped body card against CPU and against the
+     closed-form body on the card (1e-8), posorn_time at nb_deriv 1 (GN
+     and CP, early stop off) card against CPU with u within 1e-6 or the
+     lane's own spread; lqt_h400 (LQT on the 7-joint double integrator,
+     N=400): solve_dp, solve_dp(parallel=True) and solve_linalg card
+     against CPU at 1e-9 in float64, the two DPs within 1e-8 of each
+     other, their walls; ilqr.solve(backward='pscan') on the golden and
+     the time-optimal problems of the JAX package's test_pscan.py, card
+     against CPU in float64 (cost 1e-8 or the spread rule, equal
+     iterations), pscan against scan on the card within that test's
+     tolerances, riccati launched by the scan route only, and both routes'
+     float32 walls.
 Then the kernel table and, last, {"ok": true, "device": {...}}. Every JSON
 line also goes to chiprun_out/chip_smoke.jsonl.
 
@@ -146,7 +171,7 @@ T1 = ([0.554121212377707, -0.01575049935289518, 0.38295604872511507],
 T2 = ([0.254121212377707, -0.07575049935289518, 0.13170744424127526],
       [0.029927010072216945, 0.9121514607332729, 0.4087591864532181,
        0.00011933313484481926])
-H, N, B, NB_ITER, REPEATS = 100, 7, 36864, 10, 3
+H, N, B, NB_ITER, REPEATS = 100, 7, 36864, 10, 2
 KP_INNER = (49,)          # the terminal keypoint (99) folds into P0
 QD6 = [1, 1, 1, .1, .1, .1]
 NQ = 6                    # residual width of the position + quaternion kind
@@ -1076,7 +1101,7 @@ def _cpu_spread(solve, spec_cpu, x0s, U0s, c_cpu=None):
 
 
 def _card_vs_cpu(torch, path, solve, spec_fn, x0s, U0s, kernels, sensitive,
-                 rel=XCHECK_REL, **info):
+                 rel=XCHECK_REL, u_rel=None, **info):
     """64 lanes of a problem in float64, `solve(spec, x0s, U0s)` on the card
     (the path's kernels) and on the CPU (their twins): the same iterations
     and alpha (where the result has one: AL results do not) on every lane,
@@ -1084,6 +1109,8 @@ def _card_vs_cpu(torch, path, solve, spec_fn, x0s, U0s, kernels, sensitive,
     where the solve is `sensitive`, a lane over 1e-8 whose CPU cost moves by
     more than 1e-9 relative when x0 moves by 1e-15 relative (up or down) is
     held to 10 times that move instead. The card must launch each of `kernels`, the CPU none.
+    With `u_rel`, the controls (U, or the batch solver's flattened u) also
+    within u_rel of the CPU's largest |U|.
     -> (the card's result, the card's spec)"""
     res, counts, specs = {}, {}, {}
     for dev in ("cuda", "cpu"):
@@ -1122,18 +1149,27 @@ def _card_vs_cpu(torch, path, solve, spec_fn, x0s, U0s, kernels, sensitive,
         "median_iterations": float(np.median(cpu.iterations.numpy())),
         "card_kernel_launches": {k: counts["cuda"][k] for k in KERNELS},
         "cpu_kernel_launches": {k: counts["cpu"][k] for k in KERNELS},
-        "U_max_abs_diff": float((gpu.U.cpu() - cpu.U).abs().max())})
+        "U_max_abs_diff": float((_controls(gpu).cpu() - _controls(cpu)).abs().max()),
+        "U_max_abs": float(_controls(cpu).abs().max())})
     emit(out)
     if not (np.isfinite(c_gpu).all() and np.isfinite(c_cpu).all()):
         fail(f"{path}: non-finite costs")
     if not (out["same_iterations"] and out["same_alpha"]
             and not out["lanes_over_tolerance"]):
         fail(f"{path}: card and CPU disagree")
+    if u_rel is not None and out["U_max_abs_diff"] > u_rel * out["U_max_abs"]:
+        fail(f"{path}: the card's controls differ from the CPU's by "
+             f"{out['U_max_abs_diff']} (> {u_rel} of max |U| {out['U_max_abs']})")
     if (any(counts["cuda"][k] == 0 for k in kernels)
             or any(out["cpu_kernel_launches"].values())):
         fail(f"{path}: the card run must launch {list(kernels)} and the CPU "
              f"run must not launch a kernel")
     return gpu, specs["cuda"]
+
+
+def _controls(res):
+    """A result's controls: U of the iLQR results, u of the batch solver's."""
+    return res.U if hasattr(res, "U") else res.u
 
 
 # each path's kernels, which its card run must launch
@@ -1260,6 +1296,38 @@ def phase_dense_vs_sparse(torch):
 PROFILE_ITERS = 2
 
 
+def _dev_us(e):
+    return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+
+
+def _profiled(torch, path, fn):
+    """fn() once to warm up, once timed unprofiled with every count at 0
+    just before it, once under torch.profiler -> (the CUDA kernel events,
+    the unprofiled wall s, the counts of the timed run); the table goes to
+    chiprun_out/profile_<path>.txt."""
+    fn()                                    # builds the solver's constants
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    fn()
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    counts = _read_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    table = events.table(sort_by="cuda_time_total", row_limit=60)
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", f"profile_{path}.txt"), "w") as f:
+        f.write(table)
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return kernels, wall_s, counts
+
+
 def profile_window(torch, path, run):
     """Device time by kernel over a window of the path's solve,
     `run(PROFILE_ITERS)`: the initial rollout, then per iteration one
@@ -1267,33 +1335,11 @@ def profile_window(torch, path, run):
     first, so busy / wall is the device's busy share. (Tracing a whole
     solve of 46k-197k launches cost the profiler a minute a path and shows
     the same kernels.)"""
-    run(PROFILE_ITERS)                      # builds the solver's constants
-    torch.cuda.synchronize()
-    _reset_counts()
-    t0 = time.time()
-    run(PROFILE_ITERS)
-    torch.cuda.synchronize()
-    wall_s = time.time() - t0
-    counts = _read_counts()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        run(PROFILE_ITERS)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    table = events.table(sort_by="cuda_time_total", row_limit=60)
-    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", f"profile_{path}.txt"), "w") as f:
-        f.write(table)
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -dev_us(e))[:8]
-    ours = {name: [dev_us(e) / 1e3 / e.count, e.count] for e in kernels
+    kernels, wall_s, counts = _profiled(torch, path,
+                                        lambda: run(PROFILE_ITERS))
+    busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -_dev_us(e))[:8]
+    ours = {name: [_dev_us(e) / 1e3 / e.count, e.count] for e in kernels
             for name in KERNEL_FUNCTIONS if f"::{name}<" in e.key}
     emit({"phase": "profile", "path": path, "iterations": PROFILE_ITERS,
           "hand_written_kernels_ms_a_launch": ours,
@@ -1301,7 +1347,7 @@ def profile_window(torch, path, run):
           "unprofiled_wall_ms": 1e3 * wall_s, "device_busy_ms": busy_ms,
           "device_launches": sum(e.count for e in kernels),
           "busy_share_of_unprofiled_wall": busy_ms / 1e3 / wall_s,
-          "top_kernels": [[e.key[:80], dev_us(e) / 1e3, e.count] for e in top]})
+          "top_kernels": [[e.key[:80], _dev_us(e) / 1e3, e.count] for e in top]})
     return ours
 
 
@@ -2037,7 +2083,7 @@ def phase_timeopt2nd(torch):
     """timeopt2nd through solve_batch at full width, float32: no kernel
     launches (the generic sweep, once an iteration, and the plain
     rollout); the median cost and the share of lanes whose cost is NaN (the
-    reference notebook diverges to NaN on this kind); 3 timed repeats."""
+    reference notebook diverges to NaN on this kind); 2 timed repeats."""
     spec = timeopt2nd_spec(torch, torch.float32, "cuda")
     x0s, U0s = timeopt2nd_batch(T2_B)
     res, counts, first_s, times, run = _drive(torch, spec, x0s, U0s, T2_NB_ITER)
@@ -2095,8 +2141,7 @@ def phase_generic_sweep_launches(torch):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     launches = sum(e.count for e in kernels)
-    busy_ms = sum(getattr(e, "self_device_time_total", None)
-                  or e.self_cuda_time_total for e in kernels) / 1e3
+    busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
     emit({"phase": "generic_sweep", "path": "timeopt2nd", "batch": T2_B,
           "dtype": "float32", "steps": T2_H - 1, "device_launches": launches,
           "launches_a_step": launches / (T2_H - 1),
@@ -2142,6 +2187,375 @@ def phase_al_cross_checks(torch):
                     spec, {"x0": x}, u, nb, line_search=ls),
                 spec_fn, x0s, U0s2, (), ls, rel=XCHECK_REL if ls else 1e-9,
                 nb_iter=nb, line_search=ls)
+
+
+# ---------------------------------------------------------------------------
+# the batch (Gauss-Newton) solver, the LQT tracker and the
+# parallel-prefix backward; no hand-written kernel lies on these paths (the
+# JAX package runs them outside any Pallas kernel too)
+# ---------------------------------------------------------------------------
+
+GN_B, GN_NB_ITER, GN_KP, GN_REPEATS = 4096, 10, (49, 99), 3
+# bench_table.py rows batch_gn_h100_10it and batch_cp_h100_10it
+GN_ROWS = {"batch_gn": "batch_gn_h100_10it", "batch_cp": "batch_cp_h100_10it"}
+TIME_GN_ITERS = (8, 10)                 # GN, CP (test_batch_fast.py:107-125)
+TIME_GN_U_ATOL = 1e-6                   # that test's own tolerance
+LQT_N, LQT_DOF, LQT_DT, LQT_RFACTOR = 400, 7, 0.01, 0.01
+LQT_KP = (199, 399)
+LQT_REL = 1e-9
+PSCAN_ITERS = {"golden": 10, "timeopt": 20}
+
+
+def _jax_record(row):
+    """The JAX package's own float32 median cost of a bench_table.py row on
+    its TPU (BENCH_TABLE.json): a quality target, never a speed."""
+    with open(os.path.join(REPO, "BENCH_TABLE.json")) as f:
+        rows = json.load(f)["rows"]
+    return next(r["median_cost"] for r in rows if r["row"] == row)
+
+
+def _gn_psi(torch, dtype, device, H, nu, K=2):
+    from ilqr_planner_torch.ops.primitives import build_psi_unitstep
+
+    return torch.as_tensor(np.kron(build_psi_unitstep(H - 1, K), np.eye(nu)),
+                           dtype=dtype, device=device)
+
+
+def _gn_solve(torch, kp_idx, nb_iter, cp, early_stop=True):
+    """solve_batch_gn as f(spec, x0s, u0s) (x0s [B, nx] numpy or tensor),
+    with the unit-step primitives (K=2) when cp."""
+    from ilqr_planner_torch.parallel import solve_batch_gn
+
+    def f(spec, x0s, u0s, n=nb_iter):
+        x0 = torch.as_tensor(x0s, dtype=spec.dtype, device=spec.device)
+        psi = (_gn_psi(torch, spec.dtype, spec.device, spec.horizon, spec.nu)
+               if cp else None)
+        return solve_batch_gn(spec, kp_idx, {"x0": x0}, u0s, n, psi=psi,
+                              early_stop=early_stop)
+    return f
+
+
+def phase_batch_gn(torch, name):
+    """batch_gn / batch_cp (bench_table.py:202-235, uncut): the flagship
+    problem, B=4096, 10 iterations, float32, q0 = Q0 + 0.05 N(0, 1) (seed
+    0), u0 = 0; one warm-up, 3 timed repeats; every count at 0 just before
+    the first solve (no hand-written kernel may launch: the batch solver
+    has none); the median cost within 2x of the JAX record; launches a
+    solve and the device busy share of one profiled solve."""
+    cp = name == "batch_cp"
+    spec = flagship_spec(torch, torch.float32, "cuda")
+    q0s, _ = flagship_batch(GN_B)
+    x0s = torch.as_tensor(q0s, dtype=torch.float32, device="cuda")
+    u0s = torch.zeros((GN_B, (H - 1) * N), dtype=torch.float32, device="cuda")
+    solve = _gn_solve(torch, GN_KP, GN_NB_ITER, cp)
+
+    def run():
+        return solve(spec, x0s, u0s)
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    res = run()
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    counts = _read_counts()
+    times = []
+    for _ in range(GN_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = run()
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    kernels, wall_s, _ = _profiled(torch, name, run)
+    busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
+    cost = res.cost.double().cpu().numpy()
+    top = sorted(kernels, key=lambda e: -_dev_us(e))[:8]
+    out = {"phase": "end_to_end", "path": name, "nb_iter": GN_NB_ITER,
+           "batch": GN_B, "dtype": "float32", "first_call_s": first_s,
+           "repeat_times_s": times,
+           "solves_per_s_median": GN_B / statistics.median(times),
+           "spread_max_over_min": max(times) / min(times),
+           "median_cost": float(np.median(cost)),
+           "finite_costs": bool(np.isfinite(cost).all()),
+           "median_iterations": float(np.median(res.iterations.cpu().numpy())),
+           "launches": counts,
+           "shapes_ok": (tuple(res.u.shape), tuple(res.cost.shape),
+                         tuple(res.iterations.shape))
+           == ((GN_B, (H - 1) * N), (GN_B,), (GN_B,)),
+           "finite": bool(res.u.isfinite().all()),
+           "profiled_solve": {"unprofiled_wall_ms": 1e3 * wall_s,
+                              "device_busy_ms": busy_ms,
+                              "device_launches": sum(e.count for e in kernels),
+                              "busy_share_of_unprofiled_wall":
+                                  busy_ms / 1e3 / wall_s,
+                              "top_kernels": [[e.key[:80], _dev_us(e) / 1e3,
+                                               e.count] for e in top]},
+           "tf32": torch.backends.cuda.matmul.allow_tf32,
+           "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    _gate_quality(out, name, _jax_record(GN_ROWS[name]))
+    launched = [k for k in KERNELS if counts[k]]
+    if launched:
+        fail(f"{name}: hand-written kernels launched: {launched}")
+    return out
+
+
+def phase_gn_cross_checks(torch):
+    """64 lanes, float64, card against CPU: the GN and CP problems through
+    solve_batch_gn (every lane's iterations equal, cost within 1e-8 relative
+    or the spread rule, u within 1e-8 of max |u|); the reference-shaped
+    body on the GN problem, card against CPU and against the closed-form
+    body on the card (cost within 1e-8 relative, u within 1e-8 of max |u|);
+    and posorn_time at nb_deriv 1 (test_batch_fast.py:107-125, early stop
+    off; GN 8 and CP 10 iterations), card against CPU, every lane's u
+    within 1e-6 (the JAX test's own tolerance), or, for a lane over it,
+    within 10 times its own CPU spread: the larger of its u's move under a
+    1e-15 relative change of x0 (the rule of `_card_vs_cpu`, on u) and its
+    distance on the CPU to the reference-shaped body (the JAX test holds
+    the two bodies to 1e-6: the Woodbury step drifts by rounding)."""
+    from ilqr_planner_torch.solvers import batch
+
+    q0s, _ = flagship_batch(GN_B)
+    x0s, u0s = q0s[:XCHECK_B], np.zeros((XCHECK_B, (H - 1) * N))
+    for name, cp in (("batch_gn", False), ("batch_cp", True)):
+        _card_vs_cpu(torch, f"{name}_card_vs_cpu",
+                     lambda spec, x, u, cp=cp: _gn_solve(
+                         torch, GN_KP, GN_NB_ITER, cp)(spec, x, u),
+                     flagship_spec, x0s, u0s, (), True, u_rel=XCHECK_REL)
+
+    def reference(spec, x, u):
+        x = torch.as_tensor(x, dtype=spec.dtype, device=spec.device)
+        u = torch.as_tensor(u, dtype=spec.dtype, device=spec.device)
+        return batch._solve_impl(spec, batch.sparse_Q(spec, GN_KP), None, x,
+                                 u, GN_KP, GN_NB_ITER, True, False, False)
+
+    ref, spec_gpu = _card_vs_cpu(torch, "batch_gn_reference_body", reference,
+                                 flagship_spec, x0s, u0s, (), True,
+                                 u_rel=XCHECK_REL)
+    fast = _gn_solve(torch, GN_KP, GN_NB_ITER, False)(spec_gpu, x0s, u0s)
+    rel = (ref.cost - fast.cost).abs() / fast.cost.abs()
+    out = {"phase": "reference_vs_closed_form_body", "batch": XCHECK_B,
+           "dtype": "float64", "device": "cuda",
+           "same_iterations": bool(torch.equal(ref.iterations, fast.iterations)),
+           "cost_max_rel_diff": float(rel.max()),
+           "u_max_abs_diff": float((ref.u - fast.u).abs().max()),
+           "u_max_abs": float(fast.u.abs().max()), "tolerance": XCHECK_REL}
+    emit(out)
+    if not (out["same_iterations"] and out["cost_max_rel_diff"] <= XCHECK_REL
+            and out["u_max_abs_diff"] <= XCHECK_REL * out["u_max_abs"]):
+        fail("the reference-shaped and closed-form bodies disagree on the card")
+
+    tx0s, tU0s = timeopt_batch(XCHECK_B)
+    tu0s = tU0s.reshape(XCHECK_B, -1)
+    for cp, nb in zip((False, True), TIME_GN_ITERS):
+        solve = _gn_solve(torch, GN_KP, nb, cp, early_stop=False)
+        res = {dev: solve(timeopt_spec(torch, torch.float64, dev), tx0s,
+                          torch.as_tensor(tu0s, device=dev))
+               for dev in ("cuda", "cpu")}
+        g, c = res["cuda"], res["cpu"]
+        diff = (g.u.cpu() - c.u).abs().max(-1).values.numpy()
+        tol = np.full(XCHECK_B, TIME_GN_U_ATOL)
+        over = np.flatnonzero(diff > TIME_GN_U_ATOL)
+        out = {"phase": "card_vs_cpu", "path": f"timeopt_{'cp' if cp else 'gn'}",
+               "batch": XCHECK_B, "dtype": "float64", "nb_iter": nb,
+               "early_stop": False,
+               "same_iterations": bool(np.array_equal(g.iterations.cpu().numpy(),
+                                                      c.iterations.numpy())),
+               "u_max_abs_diff": float(diff.max()),
+               "u_median_abs_diff": float(np.median(diff)),
+               "u_tolerance": TIME_GN_U_ATOL,
+               "cost_max_rel_diff": float(((g.cost.cpu() - c.cost).abs()
+                                           / c.cost.abs()).max()),
+               "median_cost": float(c.cost.median())}
+        if over.size:
+            # the lane's own CPU spread: the larger of its largest |u| move
+            # when x0 (its joint positions) moves by 1e-15 relative, up or
+            # down, and its distance to the reference-shaped body's u, the
+            # same step computed in another algebraically equal order
+            spec = timeopt_spec(torch, torch.float64, "cpu")
+            spread = np.zeros(XCHECK_B)
+            for sign in (1.0, -1.0):
+                x0p = tx0s.copy()
+                x0p[:, :7] *= 1.0 + sign * XCHECK_PERTURB
+                moved = solve(spec, x0p, torch.as_tensor(tu0s))
+                spread = np.maximum(spread, (moved.u - c.u).abs().max(-1)
+                                    .values.numpy())
+            psi = _gn_psi(torch, torch.float64, "cpu", spec.horizon,
+                          spec.nu) if cp else None
+            ref = batch._solve_impl(spec, batch.sparse_Q(spec, GN_KP), psi,
+                                    torch.as_tensor(tx0s),
+                                    torch.as_tensor(tu0s), GN_KP, nb, False,
+                                    cp, False)
+            bodies = (ref.u - c.u).abs().max(-1).values.numpy()
+            tol[over] = np.maximum(TIME_GN_U_ATOL, XCHECK_SENS_FACTOR
+                                   * np.maximum(spread, bodies)[over])
+            out["lanes_over_1e-6"] = [
+                {"lane": int(i), "u_abs_diff": float(diff[i]),
+                 "cpu_u_spread_x0": float(spread[i]),
+                 "cpu_u_reference_body": float(bodies[i]),
+                 "tolerance": float(tol[i])} for i in over]
+        out["lanes_over_tolerance"] = [int(i) for i in np.flatnonzero(diff > tol)]
+        emit(out)
+        if not out["same_iterations"] or out["lanes_over_tolerance"]:
+            fail(f"{out['path']}: card and CPU disagree")
+
+
+def lqt_system(torch, device):
+    """lqt_h400: the 7-joint double integrator (nx=14, nu=7, dt=0.01,
+    A = [[I, dt I], [0, I]], B = [[dt^2/2 I], [dt I]]), N=400, Qs = I at
+    steps 199 and 399 and zero elsewhere, joint targets there from
+    N(0, 0.5) (numpy seed 0) with zero velocity, rfactor 0.01, float64."""
+    from ilqr_planner_torch.solvers.lqt import LQT
+
+    d, dt = LQT_DOF, LQT_DT
+    eye = np.eye(d)
+    A = np.block([[eye, dt * eye], [np.zeros((d, d)), eye]])
+    Bm = np.vstack([0.5 * dt * dt * eye, dt * eye])
+    Qs = np.zeros((LQT_N, 2 * d, 2 * d))
+    mu = np.zeros((LQT_N, 2 * d))
+    rng = np.random.default_rng(0)
+    for k in LQT_KP:
+        Qs[k] = np.eye(2 * d)
+        mu[k, :d] = 0.5 * rng.normal(size=d)
+    return LQT(A, Bm, Qs, mu.reshape(-1), LQT_RFACTOR, device=device)
+
+
+def phase_lqt(torch):
+    """lqt_h400 on the card and on the CPU, float64: solve_dp(), solve_dp(
+    parallel=True) and solve_linalg(), each card result within 1e-9 of the
+    largest CPU value (value Hessians, feedforward terms, commands at steps
+    0, 199 and 398 from the same state, the batch controls and predicted
+    states); the sequential and parallel DP within 1e-8 of each other on
+    the card; the card's wall of each (a second call, not gated)."""
+    x = np.random.default_rng(1).normal(size=2 * LQT_DOF)
+    steps = (0, LQT_KP[0], LQT_N - 2)
+    got, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        for method in ("dp", "dp_parallel", "linalg"):
+            lqt = lqt_system(torch, dev)
+            fn = {"dp": lqt.solve_dp,
+                  "dp_parallel": lambda lqt=lqt: lqt.solve_dp(parallel=True),
+                  "linalg": lqt.solve_linalg}[method]
+            for _ in range(2):                      # the second call timed
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.time()
+                fn()
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                walls[dev, method] = time.time() - t0
+            if method == "linalg":
+                vals = {"u": lqt._u, "commands": torch.stack(
+                    [lqt.get_command(t) for t in steps]),
+                        "predicted_states": lqt.get_predicted_states()}
+            else:
+                vals = {"Ps": lqt._Ps, "ds": lqt._ds, "commands": torch.stack(
+                    [lqt.get_command(t, x) for t in steps])}
+            got[dev, method] = {k: v.cpu() for k, v in vals.items()}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    out = {"phase": "lqt_h400", "N": LQT_N, "nx": 2 * LQT_DOF, "nu": LQT_DOF,
+           "dtype": "float64", "tolerance_card_vs_cpu": LQT_REL,
+           "card_vs_cpu_max_rel": {
+               m: {k: rel(got["cuda", m][k], got["cpu", m][k])
+                   for k in got["cpu", m]}
+               for m in ("dp", "dp_parallel", "linalg")},
+           "sequential_vs_parallel_on_card_max_rel": {
+               k: rel(got["cuda", "dp_parallel"][k], got["cuda", "dp"][k])
+               for k in ("Ps", "ds", "commands")},
+           "card_wall_ms": {m: 1e3 * walls["cuda", m]
+                            for m in ("dp", "dp_parallel", "linalg")},
+           "cpu_wall_ms": {m: 1e3 * walls["cpu", m]
+                           for m in ("dp", "dp_parallel", "linalg")}}
+    emit(out)
+    worst = max(v for d in out["card_vs_cpu_max_rel"].values() for v in d.values())
+    if not worst <= LQT_REL:
+        fail(f"lqt_h400: card and CPU differ by {worst} (> {LQT_REL})")
+    if not max(out["sequential_vs_parallel_on_card_max_rel"].values()) <= 1e-8:
+        fail("lqt_h400: the sequential and parallel DP disagree on the card")
+
+
+def _pscan_problem(torch, name, dtype, device):
+    """(spec, U0, nb_iter): test_pscan.py's golden problem (the flagship
+    spec, one problem) or its time-optimal one (H=100)."""
+    if name == "golden":
+        return (flagship_spec(torch, dtype, device), np.zeros((H - 1, N)),
+                PSCAN_ITERS[name])
+    _, U0s = timeopt_batch(1)
+    return timeopt_spec(torch, dtype, device), U0s[0], PSCAN_ITERS[name]
+
+
+def phase_pscan(torch):
+    """ilqr.solve(backward='pscan') on test_pscan.py's golden problem (10
+    iterations) and time-optimal one (20): float64 card against CPU (equal
+    iterations, cost within 1e-8 relative, or, over it, within 10 times
+    the CPU cost's own move under a 1e-15 relative change of U0, up or
+    down, where that exceeds 1e-9: the time-optimal solve amplifies
+    rounding); pscan against scan on the card within the JAX test's
+    tolerances; riccati launched by the scan route only (once an
+    iteration on the golden problem); float32 walls of both, not gated."""
+    from ilqr_planner_torch.solvers import ilqr
+
+    for name in PSCAN_ITERS:
+        res, counts = {}, {}
+        for dev, bw in (("cuda", "pscan"), ("cuda", "scan"), ("cpu", "pscan")):
+            spec, U0, nb = _pscan_problem(torch, name, torch.float64, dev)
+            _reset_counts()
+            res[dev, bw] = ilqr.solve(spec, U0, nb, backward=bw)
+            counts[bw] = counts.get(bw, 0) + _read_counts()["riccati"]
+        g, s, c = res["cuda", "pscan"], res["cuda", "scan"], res["cpu", "pscan"]
+        rel = abs(float(g.cost) - float(c.cost)) / abs(float(c.cost))
+        spread, tol = None, XCHECK_REL
+        if rel > XCHECK_REL:
+            spec_cpu, U0, nb = _pscan_problem(torch, name, torch.float64, "cpu")
+            spread = max(abs(float(ilqr.solve(
+                spec_cpu, U0 * (1 + sign * XCHECK_PERTURB), nb,
+                backward="pscan").cost) / float(c.cost) - 1)
+                for sign in (1.0, -1.0))
+            if spread > 1e-9:
+                tol = max(XCHECK_REL, XCHECK_SENS_FACTOR * spread)
+        walls = {}
+        for bw in ("scan", "pscan"):
+            spec32, U0, nb = _pscan_problem(torch, name, torch.float32, "cuda")
+            for _ in range(2):                      # the second call timed
+                torch.cuda.synchronize()
+                t0 = time.time()
+                ilqr.solve(spec32, U0, nb, backward=bw)
+                torch.cuda.synchronize()
+                walls[bw] = time.time() - t0
+        out = {"phase": "pscan", "problem": name, "nb_iter": nb,
+               "card_vs_cpu_f64": {
+                   "same_iterations": int(g.iterations) == int(c.iterations),
+                   "iterations": int(c.iterations), "cost_rel_diff": rel,
+                   "cpu_spread": spread, "tolerance": tol,
+                   "U_max_abs_diff": float((g.U.cpu() - c.U).abs().max())},
+               "pscan_vs_scan_on_card_f64": {
+                   "pscan_cost": float(g.cost), "scan_cost": float(s.cost),
+                   "cost_rel_diff": abs(float(g.cost) / float(s.cost) - 1),
+                   "X_max_abs_diff": float((g.X - s.X).abs().max()),
+                   "U_max_abs_diff": float((g.U - s.U).abs().max())},
+               "riccati_launches_on_card": counts,
+               "card_wall_ms_f32": {bw: 1e3 * walls[bw] for bw in walls}}
+        emit(out)
+        cv = out["card_vs_cpu_f64"]
+        if not (cv["same_iterations"] and cv["cost_rel_diff"] <= tol):
+            fail(f"pscan {name}: card and CPU disagree")
+        ps = out["pscan_vs_scan_on_card_f64"]
+        # the JAX test's own tolerances (test_pscan.py:116-121, :142-146)
+        if name == "golden":
+            ok = (ps["pscan_cost"] < 1e-5 and ps["cost_rel_diff"] <= 1e-4
+                  and ps["X_max_abs_diff"] <= 2e-3
+                  and ps["U_max_abs_diff"] <= 2e-3)
+        else:
+            ok = (ps["pscan_cost"] < 1e-4 and ps["cost_rel_diff"] <= 5e-3
+                  and ps["X_max_abs_diff"] <= 2e-2)
+        if not ok:
+            fail(f"pscan {name}: pscan and scan disagree on the card")
+        if counts["pscan"] or (name == "golden"
+                               and counts["scan"] != int(s.iterations)):
+            fail(f"pscan {name}: riccati must launch once an iteration on the "
+                 f"scan route and never on the pscan route: {counts}")
 
 
 def main():
@@ -2201,6 +2615,12 @@ def main():
                  "sequential_h600", "al_h400"):
         ours = timed("profiles", profile_window, torch, path, e2e[path][1])
         profiled[path] = {KERNEL_FUNCTIONS[fn]: ms for fn, (ms, _) in ours.items()}
+    # the batch solver, LQT and pscan: no hand-written kernel on these paths
+    for name in GN_ROWS:
+        timed(name, phase_batch_gn, torch, name)
+    timed("gn_cross_checks", phase_gn_cross_checks, torch)
+    timed("lqt_h400", phase_lqt, torch)
+    timed("pscan", phase_pscan, torch)
 
     def row(name, src, replaces, k, launches, path, **extra):
         return {"name": name, "route": "cuda",

@@ -1,8 +1,8 @@
 """Scenario batching: one call solves a batch of problems on one device.
 
 PyTorch counterpart of `solve_batch`, `solve_batch_staged`,
-`solve_batch_al`, `solve_batch_al_staged` and `batch_specs` in the JAX
-package's `parallel/mesh.py`. A spec in the fleet's scope whose
+`solve_batch_al`, `solve_batch_al_staged`, `solve_batch_gn` and
+`batch_specs` in the JAX package's `parallel/mesh.py`. A spec in the fleet's scope whose
 per-scenario leaves are the initial state and the fleet's keypoint
 overrides (`FLEET_OVERRIDES`) goes to the lane-major fleet solver
 (`solvers/fleet.py`); built solvers are memoized by the spec's content, the
@@ -25,14 +25,14 @@ from typing import Dict
 
 import torch
 
-from ilqr_planner_torch.solvers import al_ilqr, ilqr
+from ilqr_planner_torch.solvers import al_ilqr, batch as batch_solver, ilqr
 from ilqr_planner_torch.solvers.fleet import (FLEET_OVERRIDES, fleet_supported,
                                               make_fleet_solver,
                                               make_fleet_solver_al)
 from ilqr_planner_torch.systems.spec import Spec, split_overrides
 
 __all__ = ["solve_batch", "solve_batch_staged", "solve_batch_al",
-           "solve_batch_al_staged", "batch_specs"]
+           "solve_batch_al_staged", "solve_batch_gn", "batch_specs"]
 
 _INITIAL = ("q0", "x0")
 
@@ -316,3 +316,37 @@ def solve_batch_al_staged(spec: Spec, constraints, lam0, overrides, U0s,
     return _scatter(res1, solve_batch_al(spec, cons2, lam2, ov2, U0_2, nb_iter,
                                          lag_update_step, penalty,
                                          scaling_factor, **kw), idx)
+
+
+def solve_batch_gn(spec: Spec, kp_idx, overrides: Dict[str, torch.Tensor],
+                   u0s, nb_iter: int, psi=None, early_stop: bool = True):
+    """Solve a scenario batch of batch (Gauss-Newton) iLQR problems on the
+    spec's device: BatchILQR, or with the control-primitive basis `psi`
+    [(H-1) nu, K nu] shared by every scenario, BatchILQRCP.
+
+    u0s: [B, (H-1) nu] flattened controls. overrides: the initial state
+    ('x0', or 'q0' when no 'x0' is given) and the keypoint leaves 'mu',
+    'pos_radius', 'orn_thresh' with a leading axis B. A 'prec' override
+    raises NotImplementedError: the keypoint precision Q of the
+    Gauss-Newton system is built once from the spec, shared by every lane
+    (the JAX package ignores a per-lane 'prec' there). Returns a
+    `batch.BatchResult` with a leading scenario axis. The closed-form body
+    runs whenever every Rt > 0 (`batch.fast_supported`).
+    """
+    if "prec" in overrides:
+        raise NotImplementedError(
+            "a per-scenario 'prec' override is not supported by "
+            "solve_batch_gn: the Gauss-Newton system's keypoint precision is "
+            "built once from the spec and shared by every lane")
+    kp_idx = tuple(int(k) for k in kp_idx)
+    u0s = torch.as_tensor(u0s, dtype=spec.dtype, device=spec.device)
+    W = (spec.horizon - 1) * spec.nu
+    if u0s.dim() != 2 or u0s.shape[1] != W:
+        raise ValueError(f"u0s must be [B, {W}], got {tuple(u0s.shape)}")
+    x0s = _fleet_x0s(spec, overrides, u0s)
+    if psi is not None:
+        psi = torch.as_tensor(psi, dtype=spec.dtype, device=spec.device)
+    return batch_solver._solve_impl(
+        batch_specs(spec, overrides), batch_solver.sparse_Q(spec, kp_idx),
+        psi, x0s, u0s, kp_idx, int(nb_iter), bool(early_stop),
+        psi is not None, batch_solver.fast_supported(spec))

@@ -12,7 +12,11 @@ Per iteration:
     trial evaluates the forward map alone, `funcs.fx`): the
     integrators are kinematics-free, so the state recursion itself is a loop
     of H-1 cheap batched steps (`_integrate`);
-  * the backward pass (`_backward`): for the structured first-order kinds
+  * the backward pass (`_backward`): with backward='pscan' the generic
+    quadratization (`_stage_terms`) and the cost-to-go quadratics of the
+    parallel-prefix scan (`ops/pscan.py::lqr_cost_to_go`), the gains formed
+    with the 1e-6-regularized `inv_spd`, as the JAX package does; else, for
+    the structured first-order kinds
     (nb_deriv 1, not time-optimal: A = I, B = dt I, sequential specs of
     them included) the fused dense quadratization + Riccati sweep
     `ops/cuda_kernels/riccati.py` (the CUDA kernel for CUDA tensors, its
@@ -37,8 +41,8 @@ NaN beyond its last.
 Per-scenario keypoint leaves (mu, prec, pos_radius, orn_thresh) enter as
 spec leaves with a leading scenario axis (`parallel.mesh.batch_specs`).
 
-Not ported yet, each raising NotImplementedError: backward='pscan' (ROADMAP
-Queue 1 item 11); guard= and callback= (item 15).
+Not ported yet, each raising NotImplementedError: guard= and callback=
+(ROADMAP Queue 1 item 15).
 """
 
 import dataclasses
@@ -48,7 +52,8 @@ import numpy as np
 import torch
 
 from ilqr_planner_torch.ops.cuda_kernels.riccati import riccati_backward
-from ilqr_planner_torch.ops.linalg import solve_spd
+from ilqr_planner_torch.ops.linalg import inv_spd, solve_spd
+from ilqr_planner_torch.ops.pscan import lqr_cost_to_go
 from ilqr_planner_torch.systems import funcs
 from ilqr_planner_torch.systems.funcs import _mv
 from ilqr_planner_torch.systems.spec import Spec
@@ -199,11 +204,12 @@ def _backward(spec: Spec, X, fX, U, As, Bs, Js, pscan: bool = False,
     terms (`_limit_diag`) and precisions to `riccati_backward`: the CUDA
     kernel for CUDA tensors, its twin on the CPU. Every other kind, and a
     per-scenario `prec`, quadratizes with `cost_gradients` and runs the
-    generic recursion `_backward_core`.
+    generic recursion `_backward_core`; `pscan` quadratizes so for every
+    kind and takes the parallel-prefix route of `_backward_core`.
     """
     if pscan:
-        raise NotImplementedError(
-            "backward='pscan' is not ported yet (ROADMAP Queue 1 item 11)")
+        return _backward_core(spec, As, Bs,
+                              *_stage_terms(spec, X, fX, U, Js), pscan=True)
     if _riccati_route(spec):
         ks = torch.arange(spec.horizon, device=X.device)
         e = funcs.residual(spec, fX, ks)
@@ -232,16 +238,29 @@ def _backward_core(spec: Spec, As, Bs, l_x, l_u, l_xx, lN_x, lN_xx,
     l_u [B, H-1, nu], l_xx [B, H-1, nx, nx], terminal lN_x, lN_xx): the
     generic recursion, in plain tensor ops. As/Bs are per-step arrays, or ()
     for the LTI kinds (constant A, B). One elimination gives both gains:
-    [K | d] = -(Quu + reg I)^-1 [Qux | Qu]."""
-    if pscan:
-        raise NotImplementedError(
-            "backward='pscan' is not ported yet (ROADMAP Queue 1 item 11)")
+    [K | d] = -(Quu + reg I)^-1 [Qux | Qu].
+
+    `pscan`: the value quadratics (P_k, p_k) of the unregularized recursion
+    from the associative scan of `ops/pscan.py` in O(log H) depth, then
+    K = -(Quu + reg I)^-1 B^T P_{k+1} A and d = -(Quu + reg I)^-1
+    (l_u + B^T p_{k+1}) with the explicit `inv_spd` inverse."""
     nu = spec.nu
     dtype, dev = l_x.dtype, l_x.device
     Hm1 = l_x.shape[1]
     R = torch.diag(spec.Rt.to(dtype))
     eye_reg = _REG * torch.eye(nu, dtype=dtype, device=dev)
     const_ab = funcs.constant_AB(spec, dtype) if isinstance(As, tuple) else None
+    if pscan:
+        if const_ab is not None:
+            lead = l_x.shape[:2]
+            As = const_ab[0].expand(*lead, spec.nx, spec.nx)
+            Bs = const_ab[1].expand(*lead, spec.nx, nu)
+        Ps, ps = lqr_cost_to_go(As, Bs, l_x, l_u, l_xx, lN_x, lN_xx,
+                                spec.Rt.to(dtype))
+        P1, p1 = Ps[:, 1:], ps[:, 1:]
+        BT = Bs.transpose(-1, -2)
+        Minv = -inv_spd(R + BT @ P1 @ Bs + eye_reg)
+        return Minv @ (BT @ P1 @ As), _mv(Minv, l_u + _mv(BT, p1))
 
     P, p = lN_xx, lN_x
     Ks = l_x.new_empty((l_x.shape[0], Hm1, nu, spec.nx))
@@ -327,10 +346,12 @@ def _line_search(spec: Spec, a_sched, Ks, ds, X, U, cost, x0s, active):
 
 
 def _solve_impl(spec: Spec, x0s, U0s, nb_iter: int, line_search: bool,
-                early_stop: bool, record: bool = False) -> ILQRResult:
+                early_stop: bool, record: bool = False,
+                pscan: bool = False) -> ILQRResult:
     """The batched solve: x0s [B, nx], U0s [B, H-1, nu] on the spec's device
     -> ILQRResult with a leading scenario axis; `record` fills `progress`
-    ({"cost", "alpha"} [B, nb_iter], NaN beyond each lane's iterations)."""
+    ({"cost", "alpha"} [B, nb_iter], NaN beyond each lane's iterations);
+    `pscan` takes the parallel-prefix backward pass."""
     H, nu, nx = spec.horizon, spec.nu, spec.nx
     B = x0s.shape[0]
     dev = x0s.device
@@ -354,7 +375,7 @@ def _solve_impl(spec: Spec, x0s, U0s, nb_iter: int, line_search: bool,
             break
         fX, Js = funcs.fx_jac(spec, X)
         As, Bs = _per_step_AB(spec, X, U)
-        Ks_n, ds_n = _backward(spec, X, fX, U, As, Bs, Js, host=host)
+        Ks_n, ds_n = _backward(spec, X, fX, U, As, Bs, Js, pscan, host)
 
         Xn, Un, costn, du_acc, alpha_n = _line_search(
             spec, a_sched, Ks_n, ds_n, X, U, cost, x0s, active)
@@ -390,9 +411,6 @@ def _check_options(backward: str = "scan", guard: bool = False,
         raise ValueError(f"backward must be 'scan' or 'pscan', got {backward!r}")
     if record and callback is not None:
         raise ValueError("record=True and callback are mutually exclusive")
-    if backward == "pscan":
-        raise NotImplementedError(
-            "backward='pscan' is not ported yet (ROADMAP Queue 1 item 11)")
     for name, value in (("guard", guard), ("callback", callback)):
         if value:
             raise NotImplementedError(
@@ -408,7 +426,9 @@ def solve(spec: Spec, U0, nb_iter: int, line_search: bool = True,
 
     The signature is the JAX `solve`'s. `record=True` returns `progress`,
     {"cost": [nb_iter], "alpha": [nb_iter]} at each executed iteration and
-    NaN beyond (it excludes `callback`). `callback`, `backward='pscan'` and
+    NaN beyond (it excludes `callback`). `backward='pscan'` computes the
+    backward pass's value quadratics by the parallel-prefix scan
+    (`ops/pscan.py`) from the generic quadratization. `callback` and
     `guard` are not ported yet and raise NotImplementedError.
     """
     _check_options(backward, guard, record, callback)
@@ -417,7 +437,8 @@ def solve(spec: Spec, U0, nb_iter: int, line_search: bool = True,
         raise ValueError(f"U0 must be [{spec.horizon - 1}, {spec.nu}], got "
                          f"{tuple(U0.shape)}")
     res = _solve_impl(spec, spec.x0[None], U0[None], int(nb_iter),
-                      bool(line_search), bool(early_stop), bool(record))
+                      bool(line_search), bool(early_stop), bool(record),
+                      backward == "pscan")
     out = {f.name: getattr(res, f.name)[0] for f in dataclasses.fields(res)
            if f.name != "progress"}
     if record:

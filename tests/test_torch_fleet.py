@@ -183,10 +183,9 @@ def test_out_of_scope_raises_not_implemented():
     _, spec = _specs("joint")
     robot = spec.robot
     U0 = np.zeros((H - 1, 7))
-    # what is still not ported: the parallel-scan backward (ROADMAP Queue 1
-    # item 11) and the guard / callback hooks of both solvers (item 15)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        ilqr.solve(spec, U0, 2, backward="pscan")
+    # what is still not ported: the guard / callback hooks of both solvers
+    # (ROADMAP Queue 1 item 15); the parallel-scan backward now solves
+    assert torch.isfinite(ilqr.solve(spec, U0, 2, backward="pscan").cost)
     cons = al_ilqr.Constraints.uniform(np.zeros((1, 14)), np.zeros(1), H,
                                        device="cpu")
     for hook in ({"guard": True}, {"callback": print}):

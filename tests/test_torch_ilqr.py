@@ -261,8 +261,6 @@ def test_solve_batch_route_follows_the_spec_and_dispatch_errors_raise(monkeypatc
 def test_unported_arguments_raise():
     _, spec = _specs("joint", 1)
     U0 = _U0(spec)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        ilqr.solve(spec, U0, 2, backward="pscan")
     for kw in (dict(guard=True), dict(callback=object())):
         with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
             ilqr.solve(spec, U0, 2, **kw)
@@ -272,8 +270,6 @@ def test_unported_arguments_raise():
         ilqr.solve(spec, U0, 2, backward="tree")
     with pytest.raises(ValueError, match="U0 must be"):
         ilqr.solve(spec, U0[:-1], 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        ilqr._backward(spec, *([None] * 6), pscan=True)
     with pytest.raises(NotImplementedError, match="not ported"):
         solve_batch(spec, {"Rt": np.zeros((1, 7))}, U0[None], 2,
                     prefer_fleet=False)
