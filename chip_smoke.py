@@ -29,12 +29,12 @@ float32:
   sequential_h600_recursive, hybrid_h500_recursive, planar2d_recursive
              sequential_h600, the hybrid joint + position/orientation spec
              (H=500, B=8192) and planar2d through solve_batch(prefer_fleet=
-             False) (riccati at (7, 12), (7, 13) and (3, 2)), 2 timed repeats;
+             False) (riccati at (7, 12), (7, 13) and (3, 2)), 1 timed repeat;
   al_h400    AL-iLQR: posorn, keypoints at 199 and 399, H=400, dt=0.01,
              the bound x5 <= 2 (a 14-row A, 13 rows zero), duals from b,
              100 iterations staged (first stage 45, buckets of 512), B=8192
              (the bound folds into the stage rows: segment_backward at
-             H=400), 2 timed repeats;
+             H=400), 1 timed repeat;
   timeopt2nd the time-optimal double integrator of the reference tutorial:
              spacetime keypoints at 24 (t=2.5) and 49 (t=5), H=50, 10
              iterations, B=2048 (the fleet's generic sweep and rollout in
@@ -142,6 +142,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
      iterations), pscan against scan on the card within that test's
      tolerances, riccati launched by the scan route only, and both routes'
      float32 walls.
+  9. pylqr: the reference's PyLQR API (`ilqr_planner_torch.compat`) on the
+     card in float64, as the tutorial scripts call it: POS_ORN_SYS
+     (ILQRRecursive with a MetricsCallback: the notebook's 8 costs at rtol
+     2e-4, riccati once an iteration and no other kernel, X, U and cost
+     within 1e-9 relative of the same solve on the CPU; the solve's host
+     syncs under torch.cuda.set_sync_debug_mode: without a callback exactly
+     the solver loop's own reads, with one a read more an iteration; two
+     threaded solves, each callback hearing only its own iterations),
+     BatchILQR and BatchILQRCP with callbacks (u within 1e-8 of max |u|
+     of the CPU's, the first CP cost 0.506613; the closed-form body's host
+     syncs equal at 2 and 10 iterations), the send_vel replay through the
+     via-points, guard=True (8 iterations ending at 9.80374e-07, never
+     above the unguarded cost); POS_ORN_SYS_AL_ILQR at H=400 (max x5 <=
+     2.01, the plain cost card vs CPU within 1e-8 or the spread rule);
+     POS_ORN_TIME_SYS_2ND at H=50 with guard=True (finite, <= 2.91514, <=
+     the one-iteration guarded cost; the unguarded NaN state reported);
+     POS_ORN_MULTI_SYS (a SequentialSystem over two object frames, H=600:
+     riccati at (7, 12) once an iteration, card vs CPU 1e-9); and riccati
+     at B=1, the batch of every such solve, against its twin.
 Then the kernel table and, last, {"ok": true, "device": {...}}. Every JSON
 line also goes to chiprun_out/chip_smoke.jsonl.
 
@@ -1363,9 +1382,11 @@ def profile_window(torch, path, run):
 SEQ_H, SEQ_B, SEQ_JAX_COST = 600, 1024, 1.341e-06
 PLANAR_B, PLANAR_JAX_COST = 4096, 2.705e-4
 HYBRID_H, HYBRID_B, HYBRID_JAX_COST = 500, 8192, 2.437e-4
-# timed repeats of each recursive-route run of this slice's problems (a
-# solve there takes seconds: the recursion is host-bound over H steps)
-RECURSIVE_SLICE_REPEATS = 2
+# timed repeats of each recursive-route run of the sequential, hybrid and
+# planar problems and of al_h400 (a solve there takes seconds: the
+# recursion is host-bound over H steps); one keeps the whole script within
+# its time with the pylqr phase
+RECURSIVE_SLICE_REPEATS = 1
 # the two object frames of the reference's multi-frame tutorial
 OBJ_QUATS = ([0.63758403393523, 0.2994657314658187, 0.6042309402208079,
               -0.37244039285286973],
@@ -2029,7 +2050,7 @@ def phase_al_h400(torch):
     count at 0 just before the first staged solve; segment_backward once a
     backward sweep of each stage (the bound folds into the stage rows),
     nothing else; the median cost within 2x of the JAX record; the bound's
-    violation; 2 timed repeats."""
+    violation; RECURSIVE_SLICE_REPEATS timed repeats."""
     spec = al_spec(torch, torch.float32, "cuda")
     q0s, U0s = al_batch(AL_B)
     x0 = torch.as_tensor(q0s, dtype=torch.float32, device="cuda")
@@ -2558,6 +2579,414 @@ def phase_pscan(torch):
                  f"scan route and never on the pscan route: {counts}")
 
 
+# ---------------------------------------------------------------------------
+# pylqr: the reference's PyLQR API (ilqr_planner_torch.compat), float64, as
+# a tutorial script calls it
+# ---------------------------------------------------------------------------
+
+# POS_ORN_SYS.ipynb's stored output (cell 12): ILQRRecursive's 8 costs; the
+# first BatchILQRCP cost (cell 14); the guarded 8th iteration keeps the 7th
+PYLQR_GOLDEN = [0.214194, 0.0531093, 0.00372911, 0.000499702, 3.5657e-06,
+                9.81748e-07, 9.80374e-07, 9.80376e-07]
+PYLQR_CP_FIRST = 0.506613
+PYLQR_GUARD_COST = 9.80374e-07
+PYLQR_RTOL = 2e-4
+PYLQR_REL = 1e-9             # card vs CPU, float64, one problem
+PYLQR_U_REL = 1e-8           # the batch solvers' u, of max |u|
+TIME2_LAST_FINITE = 2.91514  # the notebook's last finite cost (cell 11)
+QMAX_TUT = np.ones(7) * np.pi * 10
+
+
+def _max_rel(a, b):
+    """max |a - b| / max |b| of two numpy arrays."""
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _pylqr_robot(compat, device, q0=Q0):
+    from ilqr_planner_torch.models import PANDA_URDF
+
+    return compat.sim.KDLRobot(PANDA_URDF.read_text(), "panda_link0",
+                               "panda_tip", list(q0), [0.0] * N,
+                               is_path=False, device=device)
+
+
+def _pylqr_posorn(compat, device, horizon, dt, q0=Q0):
+    """POS_ORN_SYS.ipynb cells 2-12 at (horizon, dt): the two via-points at
+    horizon/2 - 1 and horizon - 1, limits +-10 pi -> (robot, system)."""
+    rbt = _pylqr_robot(compat, device, q0)
+    qd = np.diag(QD6)
+    kps = [compat.system.PosOrnKeypoint(np.array(T1[0]), np.array(T1[1]), qd,
+                                        horizon // 2 - 1),
+           compat.system.PosOrnKeypoint(np.array(T2[0]), np.array(T2[1]), qd,
+                                        horizon - 1)]
+    return rbt, compat.system.PosOrnPlannerSys(
+        rbt, kps, [1e-5] * N, QMAX_TUT, -QMAX_TUT, horizon, 1, dt)
+
+
+def _pylqr_multi(compat, device):
+    """POS_ORN_MULTI_SYS.ipynb: two TransformedSimulationInterfaces over one
+    robot (object frames 1 and 2), position-only via-points at 300 and 599
+    in their frames, H=600, dt=0.01, joint and velocity limits, combined by
+    a SequentialSystem."""
+    rbt = _pylqr_robot(compat, device)
+    obj1, obj2 = _frames()
+    qd = np.diag([1, 1, 1, 0, 0, 0])
+    cmd = [1e-5] * N
+    lim = (QMAX_TUT, -QMAX_TUT, np.ones(N) * 10, -np.ones(N) * 10)
+    subs = []
+    for T, target, k in ((obj1, [0.0, 0.0, -0.15], SEQ_H // 2),
+                         (obj2, [0.1, 0.1, -0.1], SEQ_H - 1)):
+        tr = compat.sim.TransformedSimulationInterface(rbt, T)
+        kp = compat.system.PosOrnKeypoint(np.array(target),
+                                          np.array([1.0, 0, 0, 0]), qd, k)
+        subs.append(compat.system.PosOrnPlannerSys(tr, [kp], cmd, *lim, SEQ_H,
+                                                   1, 0.01))
+    return rbt, compat.system.SequentialSystem(rbt, subs, cmd, SEQ_H, 1)
+
+
+def _pylqr_time2(compat, device, H2=50):
+    """POS_ORN_TIME_SYS_2ND.ipynb (tests/test_systems_extra.py:175-200):
+    the time-optimal double integrator from the zero configuration,
+    spacetime via-points at 24 (t=2.5) and 49 (t=5), H=50."""
+    rbt = _pylqr_robot(compat, device, np.zeros(N))
+    z3, z4 = np.zeros(3), np.zeros(4)
+    kps = [compat.system.SpacetimeKeypoint(
+        np.array(T1[0]), z3, np.array(T1[1]), z4,
+        np.diag([1, 1, 1, .1, .1, .1, 1, 1, 1, 0, 0, 0, .1]), 2.5, H2 // 2 - 1),
+        compat.system.SpacetimeKeypoint(
+        np.array(T2[0]), z3, np.array(T2[1]), z4,
+        np.diag([1, 1, 1, .1, .1, .1, 1, 1, 1, .1, .1, .1, .1]), 5.0, H2 - 1)]
+    dq = np.ones(N) * 10.0
+    sys_ = compat.system.PosOrnTimePlannerSys(
+        rbt, kps, [1e-5] * (N + 1), QMAX_TUT, -QMAX_TUT, dq, -dq, H2, 2)
+    return sys_, np.tile(np.array([0.0] * N + [0.01]), (H2 - 1, 1))
+
+
+def _progress(cb):
+    """(iteration, cost, alpha) of each message a MetricsCallback heard."""
+    return [(r.get("iteration"), r.get("cost"), r.get("alpha"))
+            for r in cb.records]
+
+
+def _syncs(torch, fn):
+    """Host syncs that fn() makes, as torch.cuda.set_sync_debug_mode("warn")
+    reports them (the mode is switched on outside the count: the first
+    switch in a process reports one of its own)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _timed_solve(torch, fn):
+    """fn() with every count at 0 just before it -> (its result, wall s,
+    the counts just after)."""
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0, _read_counts()
+
+
+def _gate_pylqr(out, ok, what):
+    emit(out)
+    if not ok:
+        fail(f"pylqr {out['problem']}: {what}")
+
+
+def phase_pylqr(torch):
+    """The PyLQR drop-in API on the card, float64, as the tutorials call it
+    (`ilqr_planner_torch.compat`): POS_ORN_SYS (ILQRRecursive with a
+    MetricsCallback: the notebook's 8 costs at rtol 2e-4, riccati once an
+    iteration and no other kernel, X, U and cost within 1e-9 relative of
+    the same solve on the CPU; the host syncs of the solve without and
+    with a callback; two solves on two threads, each callback hearing its
+    own iterations on its own thread; BatchILQR and BatchILQRCP with
+    callbacks: the first CP
+    cost 0.506613, u within 1e-8 of max |u| of the CPU's, the closed-form
+    body's syncs the same at 2 and 10 iterations; the send_vel replay;
+    guard=True: 8 iterations ending at 9.80374e-07), POS_ORN_SYS_AL_ILQR
+    (H=400: max x5 <= 2.01, the plain cost card vs CPU within 1e-8 or the
+    spread rule), POS_ORN_TIME_SYS_2ND with guard=True (finite, <= 2.91514,
+    <= the one-iteration guarded cost; the unguarded NaN state reported),
+    POS_ORN_MULTI_SYS (riccati at (7, 12), card vs CPU 1e-9); then riccati
+    at B=1 against its twin. -> (riccati's kernel-vs-twin line at B=1, its
+    launches in the POS_ORN_SYS solve)."""
+    from ilqr_planner_torch import compat
+    from ilqr_planner_torch.ops.cuda_kernels import riccati as ric
+    from ilqr_planner_torch.solvers import ilqr
+    from ilqr_planner_torch.utils import MetricsCallback
+
+    solver = compat.solver
+    u0 = np.zeros((H - 1, N))
+    sys_of = {dev: _pylqr_posorn(compat, dev, H, 0.1) for dev in ("cuda", "cpu")}
+
+    # POS_ORN_SYS: the recursive solver with a callback
+    cbs, runs = {}, {}
+    for dev in ("cuda", "cpu"):
+        cbs[dev] = MetricsCallback()
+        runs[dev] = _timed_solve(torch, lambda: solver.ILQRRecursive(
+            sys_of[dev][1]).solve(u0, 10, True, True, cbs[dev]))
+    (gX, gF, gU, _, _, gcost), wall, counts = runs["cuda"]
+    cX, _, cU, _, _, ccost = runs["cpu"][0]
+    costs = cbs["cuda"].costs
+    spec = sys_of["cuda"][1].spec
+    _reset_counts()
+    without = _syncs(torch, lambda: ilqr.solve(spec, u0, 10))
+    trials = _read_counts()["recursive_trials"]
+    heard = MetricsCallback()
+    with_cb = _syncs(torch, lambda: ilqr.solve(spec, u0, 10, callback=heard))
+    # the solver's own reads, as the parent's loop makes them: U0's copy to
+    # the card, Rt and dt once, active.any() once an iteration and once to
+    # end, accepted.all() before each trial and once more where a trial
+    # was accepted before the last (alpha above 2^-10)
+    its = len(heard.records)
+    parent = (1 + 2 + its + 1 + trials
+              + sum(a > 2.0 ** -10 for a in heard.alphas))
+    _, again, _ = _timed_solve(torch, lambda: solver.ILQRRecursive(
+        sys_of["cuda"][1]).solve(u0, 10, True, True, MetricsCallback()))
+    out = {"phase": "pylqr", "problem": "pos_orn_sys", "H": H, "dtype": "float64",
+           "first_call_s": wall, "wall_s": again, "iterations": len(costs),
+           "costs": costs,
+           "golden": PYLQR_GOLDEN, "launches": counts,
+           "card_vs_cpu_rel": {"X": _max_rel(gX, cX), "U": _max_rel(gU, cU),
+                               "cost": abs(gcost / ccost - 1)},
+           "messages_card_equal_cpu": _progress(cbs["cuda"])
+           == _progress(cbs["cpu"]),
+           "host_syncs": {"callback_none": without, "callback": with_cb,
+                          "iterations": its, "trials": trials,
+                          "parent_loop_reads": parent},
+           "fX_shape": list(gF.shape)}
+    others = [k for k in KERNELS if counts[k] and k != "riccati"]
+    _gate_pylqr(out, len(costs) == len(PYLQR_GOLDEN)
+                and np.allclose(costs, PYLQR_GOLDEN, rtol=PYLQR_RTOL, atol=0)
+                and counts["riccati"] == len(costs) and not others
+                and max(out["card_vs_cpu_rel"].values()) <= PYLQR_REL
+                and out["messages_card_equal_cpu"]
+                and with_cb - without == its == len(costs)
+                and without == parent,
+                "recursive solve: costs, riccati launches, card vs CPU or "
+                "host syncs off")
+    riccati_launches = counts["riccati"]
+
+    # two solves on two threads with their own callbacks, on the card
+    import threading
+
+    iters = (4, 6)
+    heard = [[], []]
+    errors = []
+
+    def run(i):
+        me = threading.get_ident()
+
+        class Own:
+            def notify(self, msg):
+                heard[i].append((msg, threading.get_ident() == me))
+        try:
+            solver.ILQRRecursive(sys_of["cuda"][1]).solve(
+                u0, iters[i], True, False, Own())
+        except Exception as e:  # reported by the gate below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    streams = [[int(m.split(",")[0].split()[1]) for m, _ in h] for h in heard]
+    out = {"phase": "pylqr", "problem": "pos_orn_sys_two_threads",
+           "iterations": list(iters), "heard": streams, "errors": errors,
+           "own_thread": all(own for h in heard for _, own in h)}
+    _gate_pylqr(out, not errors and out["own_thread"]
+                and not any(t.is_alive() for t in threads)
+                and streams == [list(range(1, n + 1)) for n in iters],
+                "threaded solves' callbacks interleaved or failed")
+
+    # BatchILQR and BatchILQRCP with callbacks (the reference-shaped body)
+    psi = np.kron(compat.utils.primitives.build_psi_unitstep(H - 1, 2),
+                  np.eye(N))
+    for name, make in (("batch_ilqr", lambda s: solver.BatchILQR(s)),
+                       ("batch_ilqr_cp", lambda s: solver.BatchILQRCP(s, psi))):
+        us, walls, counts, heard = {}, {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            heard[dev] = MetricsCallback()
+            us[dev], walls[dev], counts[dev] = _timed_solve(torch, lambda: make(
+                sys_of[dev][1]).solve(10, np.zeros((H - 1) * N), True,
+                                      heard[dev]))
+        cb_costs = {dev: cb.costs for dev, cb in heard.items()}
+        from ilqr_planner_torch.solvers import batch
+
+        kp = tuple(sys_of["cuda"][1].get_kp_indexes())
+        psi_t = torch.as_tensor(psi, device="cuda") if name.endswith("cp") else None
+
+        def closed_form(n):
+            return _syncs(torch, lambda: batch._solve_impl(
+                spec, batch.sparse_Q(spec, kp), psi_t, spec.x0[None],
+                torch.zeros((1, (H - 1) * N), dtype=spec.dtype, device="cuda"),
+                kp, n, False, psi_t is not None, True))
+        out = {"phase": "pylqr", "problem": f"pos_orn_sys_{name}",
+               "wall_s": walls["cuda"], "iterations": len(cb_costs["cuda"]),
+               "costs": cb_costs["cuda"], "launches": counts["cuda"],
+               "u_max_abs_diff_over_max_abs": _max_rel(us["cuda"], us["cpu"]),
+               "messages_card_equal_cpu": _progress(heard["cuda"])
+               == _progress(heard["cpu"]),
+               "closed_form_host_syncs": {"nb_iter_2": closed_form(2),
+                                          "nb_iter_10": closed_form(10)}}
+        sy = out["closed_form_host_syncs"]
+        _gate_pylqr(out, out["u_max_abs_diff_over_max_abs"] <= PYLQR_U_REL
+                    and out["messages_card_equal_cpu"]
+                    and sy["nb_iter_2"] == sy["nb_iter_10"]
+                    and not any(counts["cuda"][k] for k in KERNELS)
+                    and (name != "batch_ilqr_cp" or math.isclose(
+                        cb_costs["cuda"][0], PYLQR_CP_FIRST, rel_tol=PYLQR_RTOL)),
+                    "batch solver: u, costs, syncs or launches off")
+        if name == "batch_ilqr_cp":
+            U_cp = us["cuda"].reshape(H - 1, N)
+
+    # the replay loop (cell 14) on the card's robot mirror
+    rbt = sys_of["cuda"][0]
+    rbt.set_conf(Q0, np.zeros(N), True)
+    t0 = time.time()
+    F = [np.hstack((rbt.get_ee_pos(), rbt.get_ee_orn()))]
+    for i in range(H - 1):
+        rbt.send_vel(0.1, U_cp[i], True)
+        F.append(np.hstack((rbt.get_ee_pos(), rbt.get_ee_orn())))
+    F = np.array(F)
+    out = {"phase": "pylqr", "problem": "pos_orn_sys_replay", "steps": H - 1,
+           "wall_s": time.time() - t0,
+           "via_point_errors": [float(np.abs(F[H // 2 - 1, :3] - T1[0]).max()),
+                                float(np.abs(F[H - 1, :3] - T2[0]).max())],
+           "tolerances": [2e-2, 5e-3]}
+    _gate_pylqr(out, all(e <= t for e, t in zip(out["via_point_errors"],
+                                                out["tolerances"])),
+                "the replayed trajectory misses a via-point")
+
+    # guard=True on the same problem
+    cb = MetricsCallback()
+    res, wall, counts = _timed_solve(torch, lambda: solver.ILQRRecursive(
+        sys_of["cuda"][1]).solve(u0, 10, True, True, cb, guard=True))
+    out = {"phase": "pylqr", "problem": "pos_orn_sys_guard", "wall_s": wall,
+           "iterations": len(cb.costs), "costs": cb.costs, "cost": res[5],
+           "unguarded_cost": gcost, "launches": counts}
+    _gate_pylqr(out, len(cb.costs) == 8 and math.isclose(
+        res[5], PYLQR_GUARD_COST, rel_tol=PYLQR_RTOL) and res[5] <= gcost,
+        "guard=True: iterations or final cost off")
+
+    # POS_ORN_SYS_AL_ILQR at the tutorial's size
+    from ilqr_planner_torch.solvers.ilqr import _traj_cost
+
+    def al_run(dev, q0=Q0):
+        _, s = _pylqr_posorn(compat, dev, AL_H, 0.01, q0)
+        ua = np.zeros((AL_H - 1, N))
+        A, b = np.zeros((2 * N, 2 * N)), np.zeros(2 * N)
+        A[5, 5], b[5] = 1.0, AL_BOUND
+        cons = []
+        for _ in range(AL_H - 1):
+            c = solver.Constraint()
+            c.A, c.b = A, b
+            cons.append(c)
+        cb1, cb2 = MetricsCallback(), MetricsCallback()
+        (X1, _, _, _, _, c1), w1, n1 = _timed_solve(
+            torch, lambda: solver.ILQRRecursive(s).solve(ua, 10, True, True, cb1))
+        (X2, F2, U2), w2, n2 = _timed_solve(
+            torch, lambda: solver.AL_ILQR(s, cons, [b] * (AL_H - 1)).solve(
+                ua, 100, 5, .25, 1.1, True, True, cb2))
+        t = [torch.as_tensor(a, dtype=torch.float64)[None] for a in (X2, F2, U2)]
+        cost = float(_traj_cost(s.spec, *(a.to(s.spec.device) for a in t)))
+        return {"X1": X1, "X2": X2, "U2": U2, "cost": cost, "walls": (w1, w2),
+                "launches": (n1, n2), "iterations": (len(cb1.costs),
+                                                     len(cb2.costs))}
+    al = {dev: al_run(dev) for dev in ("cuda", "cpu")}
+    rel = abs(al["cuda"]["cost"] / al["cpu"]["cost"] - 1)
+    spread, tol = None, XCHECK_REL
+    if rel > XCHECK_REL:
+        spread = max(abs(al_run("cpu", Q0 * (1 + sg * XCHECK_PERTURB))["cost"]
+                         / al["cpu"]["cost"] - 1) for sg in (1.0, -1.0))
+        if spread > 1e-9:
+            tol = max(XCHECK_REL, XCHECK_SENS_FACTOR * spread)
+    g = al["cuda"]
+    out = {"phase": "pylqr", "problem": "pos_orn_sys_al_ilqr", "H": AL_H,
+           "dt": 0.01, "wall_s": {"ilqr": g["walls"][0], "al_ilqr": g["walls"][1]},
+           "cpu_wall_s": {"ilqr": al["cpu"]["walls"][0],
+                          "al_ilqr": al["cpu"]["walls"][1]},
+           "iterations": {"ilqr": g["iterations"][0], "al_ilqr": g["iterations"][1]},
+           "launches": {"ilqr": g["launches"][0], "al_ilqr": g["launches"][1]},
+           "max_x5": {"unconstrained": float(g["X1"][:, 5].max()),
+                      "al_ilqr": float(g["X2"][:, 5].max())},
+           "bound": AL_BOUND, "tutorial_gate": AL_BOUND + 1e-2,
+           "card_vs_cpu": {"cost_rel": rel, "cpu_spread": spread,
+                           "tolerance": tol, "cost": g["cost"],
+                           "U_max_abs_diff": float(np.abs(
+                               g["U2"] - al["cpu"]["U2"]).max()),
+                           "same_iterations": g["iterations"]
+                           == al["cpu"]["iterations"]}}
+    _gate_pylqr(out, out["max_x5"]["al_ilqr"] <= AL_BOUND + 1e-2
+                and rel <= tol and out["card_vs_cpu"]["same_iterations"],
+                "AL tutorial: bound, iterations or card vs CPU off")
+
+    # POS_ORN_TIME_SYS_2ND with guard=True (and the unguarded NaN state)
+    s2, U2_0 = _pylqr_time2(compat, "cuda")
+    cb = MetricsCallback()
+    res, wall, counts = _timed_solve(torch, lambda: solver.ILQRRecursive(
+        s2).solve(U2_0, 20, True, True, cb, guard=True))
+    one = solver.ILQRRecursive(s2).solve(U2_0, 1, True, False, None, guard=True)
+    cb_plain = MetricsCallback()
+    plain = solver.ILQRRecursive(s2).solve(U2_0, 20, True, True, cb_plain)
+    out = {"phase": "pylqr", "problem": "pos_orn_time_sys_2nd_guard", "H": 50,
+           "wall_s": wall, "iterations": len(cb.costs), "costs": cb.costs,
+           "cost": res[5], "one_iteration_cost": one[5], "launches": counts,
+           "finite": bool(np.isfinite(res[2]).all() and np.isfinite(res[0]).all()),
+           "unguarded": {"cost": plain[5], "iterations": len(cb_plain.costs),
+                         "first_nan_iteration": next(
+                             (r["iteration"] for r in cb_plain.records
+                              if math.isnan(r["cost"])), None)}}
+    _gate_pylqr(out, out["finite"] and math.isfinite(res[5])
+                and res[5] <= TIME2_LAST_FINITE and res[5] <= one[5] + 1e-12,
+                "guard=True on the sqrt(dt) workload")
+
+    # POS_ORN_MULTI_SYS: riccati at (7, 12)
+    ms = {}
+    for dev in ("cuda", "cpu"):
+        _, seq = _pylqr_multi(compat, dev)
+        cb = MetricsCallback()
+        ms[dev] = _timed_solve(torch, lambda: solver.ILQRRecursive(seq).solve(
+            np.zeros((SEQ_H - 1, N)), 10, True, True, cb)) + (cb.costs, seq)
+    (mX, _, mU, _, _, mcost), wall, counts, mcosts, seq = ms["cuda"]
+    cX, _, cU, _, _, ccost = ms["cpu"][0]
+    out = {"phase": "pylqr", "problem": "pos_orn_multi_sys", "H": SEQ_H,
+           "riccati_width": [seq.spec.nx, seq.spec.nq_var], "wall_s": wall,
+           "iterations": len(mcosts), "costs": mcosts, "launches": counts,
+           "card_vs_cpu_rel": {"X": _max_rel(mX, cX), "U": _max_rel(mU, cU),
+                               "cost": abs(mcost / ccost - 1)}}
+    _gate_pylqr(out, out["riccati_width"] == [N, 12]
+                and counts["riccati"] == len(mcosts) > 0
+                and max(out["card_vs_cpu_rel"].values()) <= PYLQR_REL,
+                "sequential system: riccati launches or card vs CPU off")
+
+    # riccati at B = 1, the batch of every compat solve
+    Rt = [1e-5] * N
+    kv = _kernel_vs_twin(
+        torch, "riccati", {"n": N, "nq": NQ, "H": H, "B": 1, "prec_steps": 2},
+        riccati_inputs(1) + (riccati_prec(False),),
+        lambda *a: ric.riccati_backward(*a, Rt, 0.1),
+        lambda *a: ric.riccati_backward_reference(*a, Rt, 0.1), 2, inner=5)
+    kv.update(bound(riccati_bytes(N, NQ, H, 1, 4), riccati_flops(N, NQ, H, 1)))
+    kv["launch"] = _launch_of(torch, "riccati",
+                              lambda dt_: ric.launch_geometry(1, dt_, N, NQ),
+                              lambda dt_: ric.kernel_geometry(1, dt_, N, NQ))
+    return _gate_kernel(kv), riccati_launches
+
+
 def main():
     import torch
 
@@ -2621,6 +3050,8 @@ def main():
     timed("gn_cross_checks", phase_gn_cross_checks, torch)
     timed("lqt_h400", phase_lqt, torch)
     timed("pscan", phase_pscan, torch)
+    # the PyLQR drop-in API, float64, and riccati at its batch of one
+    kv_b1, pylqr_launches = timed("pylqr", phase_pylqr, torch)
 
     def row(name, src, replaces, k, launches, path, **extra):
         return {"name": name, "route": "cuda",
@@ -2686,7 +3117,9 @@ def main():
               width=f"{w} ({path})")
           for w, path in (("7x12", "sequential_h600_recursive"),
                           ("7x13", "hybrid_h500_recursive"),
-                          ("3x2", "planar2d_recursive"))]],
+                          ("3x2", "planar2d_recursive"))],
+        row("riccati", "riccati.cu", ric_src, kv_b1, pylqr_launches, "pylqr",
+            width="7x6 B=1 (pylqr POS_ORN_SYS, float64 solve)")],
         "phase_s": phase_s, "total_s": time.time() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -54,17 +54,19 @@ class Robot:
             out["frame"] = self.frame
         return out
 
-    def to(self, device) -> "Robot":
-        """The same robot with every tensor on `device`."""
+    def to(self, device, dtype=None) -> "Robot":
+        """The same robot with every tensor on `device` (and in `dtype`
+        when given)."""
         def move(obj):
             if obj is None:
                 return None
             return dataclasses.replace(obj, **{
-                f.name: getattr(obj, f.name).to(device)
+                f.name: getattr(obj, f.name).to(device=device, dtype=dtype)
                 for f in dataclasses.fields(obj)})
         return Robot(kind=self.kind, chain=move(self.chain),
                      planar=move(self.planar),
-                     frame=None if self.frame is None else self.frame.to(device))
+                     frame=None if self.frame is None
+                     else self.frame.to(device=device, dtype=dtype))
 
     def with_frame(self, T) -> "Robot":
         """The robot with its end effector expressed in the object frame T

@@ -23,8 +23,11 @@ Semantics held:
   * early stop alpha sqrt(sum ||du||) < 1e-3, without the plain solver's
     cost < 1e-3 condition. A stopped lane freezes.
 
-Zero constraint rows are inert. Not ported yet, each raising
-NotImplementedError: guard= and callback= (ROADMAP Queue 1 item 15).
+Zero constraint rows are inert. The hooks are `ilqr.solve`'s:
+`guard=True` keeps a lane's incumbent X, U and cost where its line search
+floors out, and stops the lane (the duals still take that iteration's
+update, as in the JAX package); `callback` hears of lane 0's (plain cost,
+alpha) after each outer iteration.
 """
 
 import dataclasses
@@ -37,6 +40,7 @@ from ilqr_planner_torch.solvers import ilqr
 from ilqr_planner_torch.systems import funcs
 from ilqr_planner_torch.systems.funcs import _mv
 from ilqr_planner_torch.systems.spec import Spec
+from ilqr_planner_torch.utils.callbacks import emit_progress
 from ilqr_planner_torch.utils.device import resolve_device
 
 __all__ = ["Constraints", "ALILQRResult", "solve"]
@@ -149,11 +153,12 @@ def _backward_core_al(spec: Spec, As, Bs, l_x, l_u, l_xx, lN_x, lN_xx,
 def _solve_impl(spec: Spec, cons: Constraints, lam0, x0s, U0s, nb_iter: int,
                 lag_update_step: int, penalty: float, scaling_factor: float,
                 line_search: bool, early_stop: bool,
-                record: bool = False) -> ALILQRResult:
+                record: bool = False, guard: bool = False,
+                callback=None) -> ALILQRResult:
     """The batched AL solve: x0s [B, nx], U0s [B, H-1, nu], lam0
     [B, H-1, nc], the constraints shared ([H-1, ..]) or per lane
     ([B, H-1, ..]), all on the spec's device -> ALILQRResult with a leading
-    scenario axis."""
+    scenario axis; `guard` and `callback` as in `ilqr._solve_impl`."""
     H, nu, nx = spec.horizon, spec.nu, spec.nx
     B = x0s.shape[0]
     dev = x0s.device
@@ -180,8 +185,14 @@ def _solve_impl(spec: Spec, cons: Constraints, lam0, x0s, U0s, nb_iter: int,
         Ks, ds = _backward_core_al(spec, As, Bs,
                                    *ilqr._stage_terms(spec, X, fX, U, Js),
                                    ckx, cku, Is, Cs, lam)
-        Xn, Un, costn, du_acc, alpha = ilqr._line_search(
+        Xn, Un, costn, du_acc, alpha, ok = ilqr._line_search(
             spec, a_sched, Ks, ds, X, U, cost, x0s, active)
+        if guard:
+            Xn = torch.where(ilqr._lead(ok, X), Xn, X)
+            Un = torch.where(ilqr._lead(ok, U), Un, U)
+            costn = torch.where(ok, costn, cost)
+        if callback is not None:
+            emit_progress(callback, active, it, costn, alpha)
         Isn, Csn = _active_sets(cons, lam, pen, Xn, Un)
         update = ((it + 1) % lag_update_step) == 0
         pen_n = torch.where(update, pen * scaling_factor, pen)
@@ -191,6 +202,8 @@ def _solve_impl(spec: Spec, cons: Constraints, lam0, x0s, U0s, nb_iter: int,
         new_done = done
         if early_stop:
             new_done = done | (alpha * torch.sqrt(du_acc) < 1e-3)
+        if guard:
+            new_done = new_done | ~ok
         if record:
             rec_cost = ilqr._record(rec_cost, it, active, costn)
             rec_alpha = ilqr._record(rec_alpha, it, active, alpha)
@@ -220,12 +233,16 @@ def solve(spec: Spec, constraints: Constraints, init_lambda, U0, nb_iter: int,
     init_lambda ([nc], or [H-1, nc]), on the spec's device (CUDA unless
     the spec was built with device="cpu").
 
-    The signature is the JAX `solve`'s. `record=True` returns `progress`,
-    {"cost": [nb_iter], "alpha": [nb_iter]} at each executed iteration and
-    NaN beyond (it excludes `callback`). `callback` and `guard` are not
-    ported yet and raise NotImplementedError.
+    The signature is the JAX `solve`'s. `callback.notify(msg)` is called
+    after each executed outer iteration ("Iteration i, Cost: c, alpha= a",
+    the plain cost). `guard=True`: a floored-out line search with no finite
+    improving trial keeps the incumbent trajectory and stops, instead of
+    the reference's adoption of the last trial (AL-ILQR.cpp:149-199).
+    `record=True` returns `progress`, {"cost": [nb_iter], "alpha":
+    [nb_iter]} at each executed iteration and NaN beyond (it excludes
+    `callback`).
     """
-    ilqr._check_options(guard=guard, record=record, callback=callback)
+    ilqr._check_options(record=record, callback=callback)
     H = spec.horizon
     U0 = torch.as_tensor(U0, dtype=spec.dtype, device=spec.device)
     if tuple(U0.shape) != (H - 1, spec.nu):
@@ -238,7 +255,7 @@ def solve(spec: Spec, constraints: Constraints, init_lambda, U0, nb_iter: int,
     res = _solve_impl(spec, cons, lam0[None], spec.x0[None], U0[None],
                       int(nb_iter), int(lag_update_step), float(penalty),
                       float(scaling_factor), bool(line_search),
-                      bool(early_stop), bool(record))
+                      bool(early_stop), bool(record), bool(guard), callback)
     out = {f.name: getattr(res, f.name)[0] for f in dataclasses.fields(res)
            if f.name != "progress"}
     if record:

@@ -38,14 +38,15 @@ Reproduced reference quirks (iteration parity with the JAX package):
   * the line-search floor accepts the trial unconditionally at
     alpha < 1e-3.
 
+`callback=` is notified of lane 0's (cost before the step, alpha) after
+each iteration, as the JAX package does, and, as there, a solve with a
+callback runs the reference-shaped body.
+
 Float32 matmuls must keep full precision: the port leaves
 `torch.backends.cuda.matmul.allow_tf32` False and the float32 matmul
 precision at "highest", their defaults. The Woodbury step scales V by
 1/sqrt(Rt) (about 316 at Rt = 1e-5), and reduced precision is what broke
 the algebraically equal push-through form on the TPU.
-
-Not ported yet, raising NotImplementedError: callback= (ROADMAP Queue 1
-item 15).
 """
 
 import dataclasses
@@ -55,6 +56,7 @@ import torch
 
 from ilqr_planner_torch.systems import funcs
 from ilqr_planner_torch.systems.spec import Spec
+from ilqr_planner_torch.utils.callbacks import emit_progress
 
 __all__ = ["BatchResult", "solve", "solve_cp", "sparse_Q", "sparse_mu",
            "fast_supported"]
@@ -190,7 +192,7 @@ def _build_su(spec: Spec, As, Bs, kp_idx):
 
 
 def _solve_body(spec, Q, psi, x0s, u0s, kp_idx, nb_iter, early_stop,
-                use_psi):
+                use_psi, callback=None):
     H, nu = spec.horizon, spec.nu
     Bsz = u0s.shape[0]
     dev = u0s.device
@@ -242,6 +244,8 @@ def _solve_body(spec, Q, psi, x0s, u0s, kp_idx, nb_iter, early_stop,
             u_new = torch.where(pending[:, None], utmp, u_new)
             alpha = torch.where(pending & ~ok, alpha / 2, alpha)
             pending = pending & ~ok
+        if callback is not None:
+            emit_progress(callback, active, it, c0, alpha)
 
         new_done = early_stop & (alpha * torch.sqrt((du * du).sum(-1)) < 1e-3)
         u = torch.where(active[:, None], u_new, u)
@@ -549,20 +553,21 @@ def _check_info(info):
 
 
 def _solve_impl(spec: Spec, Q, psi, x0s, u0s, kp_idx, nb_iter: int,
-                early_stop: bool, use_psi: bool, fast: bool) -> BatchResult:
+                early_stop: bool, use_psi: bool, fast: bool,
+                callback=None) -> BatchResult:
     """The batched solve on the spec's device: x0s [B, nx], u0s
     [B, (H-1) nu], Q the sparse keypoint precision, psi [(H-1) nu, K nu]
     when use_psi (else unused). `fast` runs the closed-form body (it needs
-    every Rt > 0), else the reference-shaped one."""
-    body = _solve_body_fast if fast else _solve_body
-    return body(spec, Q, psi, x0s, u0s, tuple(int(k) for k in kp_idx),
-                int(nb_iter), bool(early_stop), bool(use_psi))
+    every Rt > 0) unless a `callback` is given, else the reference-shaped
+    one, which notifies the callback of lane 0's iterations."""
+    args = (spec, Q, psi, x0s, u0s, tuple(int(k) for k in kp_idx),
+            int(nb_iter), bool(early_stop), bool(use_psi))
+    if fast and callback is None:
+        return _solve_body_fast(*args)
+    return _solve_body(*args, callback=callback)
 
 
 def _single(spec: Spec, Q, psi, kp_idx, nb_iter, u0, early_stop, callback):
-    if callback is not None:
-        raise NotImplementedError(
-            "callback= is not ported yet (ROADMAP Queue 1 item 15)")
     kp_idx = tuple(int(k) for k in kp_idx)
     Q = sparse_Q(spec, kp_idx) if Q is None else torch.as_tensor(
         Q, dtype=spec.dtype, device=spec.device)
@@ -570,7 +575,8 @@ def _single(spec: Spec, Q, psi, kp_idx, nb_iter, u0, early_stop, callback):
     if psi is not None:
         psi = torch.as_tensor(psi, dtype=spec.dtype, device=spec.device)
     res = _solve_impl(spec, Q, psi, spec.x0[None], u0, kp_idx, nb_iter,
-                      early_stop, psi is not None, fast_supported(spec))
+                      early_stop, psi is not None, fast_supported(spec),
+                      callback)
     return BatchResult(u=res.u[0], cost=res.cost[0],
                        iterations=res.iterations[0])
 
@@ -583,8 +589,9 @@ def solve(spec: Spec, kp_idx: Sequence[int], nb_iter: int, u0,
 
     kp_idx: keypoint timesteps in sorted order. u0: the flattened
     [(H-1) nu] initial controls. Q optionally overrides the sparse
-    block-diagonal precision. `callback` is not ported yet and raises
-    NotImplementedError.
+    block-diagonal precision. `callback.notify(msg)` is called after each
+    iteration ("Iteration i, Cost: c, alpha= a", the cost before the step);
+    a solve with a callback runs the reference-shaped body.
     """
     return _single(spec, Q, None, kp_idx, nb_iter, u0, early_stop, callback)
 

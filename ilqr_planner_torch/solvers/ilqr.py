@@ -41,8 +41,13 @@ NaN beyond its last.
 Per-scenario keypoint leaves (mu, prec, pos_radius, orn_thresh) enter as
 spec leaves with a leading scenario axis (`parallel.mesh.batch_specs`).
 
-Not ported yet, each raising NotImplementedError: guard= and callback=
-(ROADMAP Queue 1 item 15).
+The hooks of the JAX `solve`: `guard=True` is a per-lane mask (a lane
+whose line search floors out without a finite, strictly lower trial keeps
+its incumbent X, U and cost, and stops); `callback` is notified of lane 0's
+(cost, alpha) after each of its iterations (the cost after the guard's
+keep), on the caller's thread, with the JAX package's message, in one
+read from the device an iteration; without a callback the only reads are
+the loop tests.
 """
 
 import dataclasses
@@ -57,6 +62,7 @@ from ilqr_planner_torch.ops.pscan import lqr_cost_to_go
 from ilqr_planner_torch.systems import funcs
 from ilqr_planner_torch.systems.funcs import _mv
 from ilqr_planner_torch.systems.spec import Spec
+from ilqr_planner_torch.utils.callbacks import emit_progress
 
 __all__ = ["ILQRResult", "solve", "rollout", "static_kp_steps", "TRIALS"]
 
@@ -328,7 +334,8 @@ def _line_search(spec: Spec, a_sched, Ks, ds, X, U, cost, x0s, active):
     """Backtracking over `a_sched`: each active lane adopts its first trial
     with a strictly lower, non-NaN cost, and the last trial when none
     passes; frozen lanes start as accepted, and the walk stops once every
-    lane has accepted. -> (X, U, cost, sum ||du||, alpha)."""
+    lane has accepted. -> (X, U, cost, sum ||du||, alpha, accepted [B]:
+    False where an active lane found no such trial)."""
     global TRIALS
     accepted = ~active
     best = (X, U, cost, torch.zeros_like(cost), torch.ones_like(cost))
@@ -342,16 +349,19 @@ def _line_search(spec: Spec, a_sched, Ks, ds, X, U, cost, x0s, active):
         best = tuple(torch.where(_lead(take, new), new, old) for old, new
                      in zip(best, (Xt, Ut, ct, dut, torch.full_like(ct, a))))
         accepted = accepted | ok
-    return best
+    return best + (accepted,)
 
 
 def _solve_impl(spec: Spec, x0s, U0s, nb_iter: int, line_search: bool,
                 early_stop: bool, record: bool = False,
-                pscan: bool = False) -> ILQRResult:
+                pscan: bool = False, guard: bool = False,
+                callback=None) -> ILQRResult:
     """The batched solve: x0s [B, nx], U0s [B, H-1, nu] on the spec's device
     -> ILQRResult with a leading scenario axis; `record` fills `progress`
     ({"cost", "alpha"} [B, nb_iter], NaN beyond each lane's iterations);
-    `pscan` takes the parallel-prefix backward pass."""
+    `pscan` takes the parallel-prefix backward pass; `guard` keeps a lane's
+    incumbent where its line search floors out and stops the lane;
+    `callback` hears of lane 0's iterations."""
     H, nu, nx = spec.horizon, spec.nu, spec.nx
     B = x0s.shape[0]
     dev = x0s.device
@@ -377,13 +387,21 @@ def _solve_impl(spec: Spec, x0s, U0s, nb_iter: int, line_search: bool,
         As, Bs = _per_step_AB(spec, X, U)
         Ks_n, ds_n = _backward(spec, X, fX, U, As, Bs, Js, pscan, host)
 
-        Xn, Un, costn, du_acc, alpha_n = _line_search(
+        Xn, Un, costn, du_acc, alpha_n, ok = _line_search(
             spec, a_sched, Ks_n, ds_n, X, U, cost, x0s, active)
+        if guard:
+            Xn = torch.where(_lead(ok, X), Xn, X)
+            Un = torch.where(_lead(ok, U), Un, U)
+            costn = torch.where(ok, costn, cost)
+        if callback is not None:
+            emit_progress(callback, active, it, costn, alpha_n)
 
         new_done = done
         if early_stop:
             new_done = done | ((alpha_n * torch.sqrt(du_acc) < 1e-3)
                                & (costn < 1e-3))
+        if guard:
+            new_done = new_done | ~ok
         if record:
             rec_cost = _record(rec_cost, it, active, costn)
             rec_alpha = _record(rec_alpha, it, active, alpha_n)
@@ -403,18 +421,13 @@ def _solve_impl(spec: Spec, x0s, U0s, nb_iter: int, line_search: bool,
                       if record else None)
 
 
-def _check_options(backward: str = "scan", guard: bool = False,
-                   record: bool = False, callback=None):
-    """Raise for contradictory arguments and for those of the JAX `solve`
-    that are not ported."""
+def _check_options(backward: str = "scan", record: bool = False,
+                   callback=None):
+    """Raise for contradictory arguments."""
     if backward not in ("scan", "pscan"):
         raise ValueError(f"backward must be 'scan' or 'pscan', got {backward!r}")
     if record and callback is not None:
         raise ValueError("record=True and callback are mutually exclusive")
-    for name, value in (("guard", guard), ("callback", callback)):
-        if value:
-            raise NotImplementedError(
-                f"{name}= is not ported yet (ROADMAP Queue 1 item 15)")
 
 
 def solve(spec: Spec, U0, nb_iter: int, line_search: bool = True,
@@ -424,21 +437,25 @@ def solve(spec: Spec, U0, nb_iter: int, line_search: bool = True,
     """Solve the problem from the initial controls U0 [H-1, nu], on the
     spec's device (CUDA unless the spec was built with device="cpu").
 
-    The signature is the JAX `solve`'s. `record=True` returns `progress`,
-    {"cost": [nb_iter], "alpha": [nb_iter]} at each executed iteration and
-    NaN beyond (it excludes `callback`). `backward='pscan'` computes the
-    backward pass's value quadratics by the parallel-prefix scan
-    (`ops/pscan.py`) from the generic quadratization. `callback` and
-    `guard` are not ported yet and raise NotImplementedError.
+    The signature is the JAX `solve`'s. `callback.notify(msg)` is called
+    after each executed iteration with "Iteration i, Cost: c, alpha= a".
+    `guard=True` (default off, for the reference's behavior): where every
+    trial down to the alpha floor fails (NaN or not strictly lower), keep
+    the incumbent trajectory and stop, instead of adopting the last trial;
+    the result is then the best finite iterate. `record=True` returns
+    `progress`, {"cost": [nb_iter], "alpha": [nb_iter]} at each executed
+    iteration and NaN beyond (it excludes `callback`). `backward='pscan'`
+    computes the backward pass's value quadratics by the parallel-prefix
+    scan (`ops/pscan.py`) from the generic quadratization.
     """
-    _check_options(backward, guard, record, callback)
+    _check_options(backward, record, callback)
     U0 = torch.as_tensor(U0, dtype=spec.dtype, device=spec.device)
     if tuple(U0.shape) != (spec.horizon - 1, spec.nu):
         raise ValueError(f"U0 must be [{spec.horizon - 1}, {spec.nu}], got "
                          f"{tuple(U0.shape)}")
     res = _solve_impl(spec, spec.x0[None], U0[None], int(nb_iter),
                       bool(line_search), bool(early_stop), bool(record),
-                      backward == "pscan")
+                      backward == "pscan", bool(guard), callback)
     out = {f.name: getattr(res, f.name)[0] for f in dataclasses.fields(res)
            if f.name != "progress"}
     if record:

@@ -11,6 +11,7 @@ largest gain).
 """
 
 import inspect
+import types
 
 import numpy as np
 import pytest
@@ -197,13 +198,46 @@ def test_solve_record_matches_jax(first, nb_iter, cost_rtol, u_atol, lam_atol):
                                    np.asarray(ref.progress[k]), rtol=cost_rtol)
 
 
-def test_hooks_raise_item_15(first):
-    _, spec = first
+@pytest.mark.parametrize("guard", [False, True], ids=["plain", "guard"])
+def test_hooks_match_jax(first, guard):
+    """callback= and guard= of the AL solver against the JAX package's (its
+    while-loop body, which a callback selects): the messages string-equal,
+    delivered on the caller's thread, one an outer iteration (the plain
+    cost); the result equals the port's solve without a callback bit for
+    bit and the JAX one at the 6-iteration tolerances. The line search
+    floors out at iteration 6: unguarded, the solve adopts the floor
+    trial's higher cost (0.018672); guarded, it keeps the incumbent's
+    (0.0186695) and stops."""
+    import threading
+
+    from ilqr_planner_tpu.solvers import al_ilqr as jal
+
+    jspec, spec = first
     cons = al_ilqr.Constraints.uniform(X5, [1.5], H, device="cpu")
     U0 = np.zeros((H - 1, 7))
-    for hook in ({"callback": print}, {"guard": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
-            al_ilqr.solve(spec, cons, np.zeros(1), U0, 2, *AL_ARGS, **hook)
+    heard, threads = [], set()
+
+    class Heard:
+        def notify(self, msg):
+            heard.append(msg)
+            threads.add(threading.get_ident())
+
+    jheard = []
+    want = jal.solve(jspec, _jax_cons(X5, [1.5]), np.zeros(1), U0, 12,
+                     *AL_ARGS, guard=guard,
+                     callback=types.SimpleNamespace(notify=jheard.append))
+    got = al_ilqr.solve(spec, cons, np.zeros(1), U0, 12, *AL_ARGS,
+                        guard=guard, callback=Heard())
+    quiet = al_ilqr.solve(spec, cons, np.zeros(1), U0, 12, *AL_ARGS,
+                          guard=guard)
+    assert heard == jheard and threads == {threading.get_ident()}
+    assert len(heard) == int(got.iterations) == int(want.iterations)
+    for f in ("X", "U", "multipliers", "cost", "iterations"):
+        assert torch.equal(getattr(got, f), getattr(quiet, f)), f
+    _close(got, want, 1e-9, 1e-8, 1e-10)
+    last, before = (m.split("Cost: ")[1].split(",")[0] for m in heard[-1:-3:-1])
+    assert heard[-1].endswith("alpha= 0.000976562")
+    assert (last == before) == guard
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,11 @@ against the JAX package in float64 on the CPU.
     (u) and rtol 1e-6 (cost), early stop off;
   * `solve_batch_gn` on 4 lanes with per-lane `x0` and `mu` overrides, GN
     and CP, lane by lane against the JAX `solve_batch_gn`;
-  * a per-lane `prec` override and `callback=` raise.
+  * a per-lane `prec` override raises; `callback=` hears each iteration
+    (its parity with the JAX messages: `tests/test_torch_hooks.py`).
 """
+
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -281,7 +284,9 @@ def test_solve_batch_gn_overrides_match_jax(cp):
 
 def test_unsupported_arguments_raise():
     """A per-lane prec override (the JAX package builds Q once from the
-    spec and would ignore it) and callback= raise; a wrong u0s shape too."""
+    spec and would ignore it) and a wrong u0s shape raise; callback= works:
+    one message an iteration, the cost before the step, the result that of
+    the reference-shaped body."""
     from ilqr_planner_torch.models import Robot, chain_from_urdf
     from ilqr_planner_torch.systems.keypoints import PosOrnKeypoint
     from ilqr_planner_torch.systems.spec import make_spec
@@ -298,8 +303,19 @@ def test_unsupported_arguments_raise():
         solve_batch_gn(spec, (H - 1,), {"prec": prec}, u0s, 2)
     with pytest.raises(ValueError, match="u0s must be"):
         solve_batch_gn(spec, (H - 1,), {}, u0s[:, :-1], 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tbatch.solve(spec, (H - 1,), 2, u0s[0], callback=print)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        tbatch.solve_cp(spec, np.eye(u0s.shape[1]), (H - 1,), 2, u0s[0],
-                        callback=print)
+    for psi in (None, np.eye(u0s.shape[1])):
+        heard = []
+        cb = types.SimpleNamespace(notify=heard.append)
+        if psi is None:
+            got = tbatch.solve(spec, (H - 1,), 2, u0s[0], callback=cb)
+        else:
+            got = tbatch.solve_cp(spec, psi, (H - 1,), 2, u0s[0], callback=cb)
+        ref = tbatch._solve_impl(
+            spec, tbatch.sparse_Q(spec, (H - 1,)),
+            None if psi is None else torch.tensor(psi), spec.x0[None],
+            torch.tensor(u0s[:1]), (H - 1,), 2, True, psi is not None, False)
+        assert torch.equal(got.u, ref.u[0])
+        assert [m.split(",")[0] for m in heard] == [
+            f"Iteration {i + 1}" for i in range(int(got.iterations))]
+        assert heard[-1].split("Cost: ")[1].split(",")[0] == \
+            f"{float(got.cost):g}"

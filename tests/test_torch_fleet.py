@@ -9,6 +9,7 @@ boundary lane and move the final iterate by more than 1e-12).
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -183,14 +184,21 @@ def test_out_of_scope_raises_not_implemented():
     _, spec = _specs("joint")
     robot = spec.robot
     U0 = np.zeros((H - 1, 7))
-    # what is still not ported: the guard / callback hooks of both solvers
-    # (ROADMAP Queue 1 item 15); the parallel-scan backward now solves
+    # the parallel-scan backward solves, and the AL solver's guard /
+    # callback hooks work: one message an outer iteration, the plain cost
     assert torch.isfinite(ilqr.solve(spec, U0, 2, backward="pscan").cost)
     cons = al_ilqr.Constraints.uniform(np.zeros((1, 14)), np.zeros(1), H,
                                        device="cpu")
-    for hook in ({"guard": True}, {"callback": print}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-            al_ilqr.solve(spec, cons, np.zeros(1), U0, 2, 1, 0.25, 1.1, **hook)
+    al_args = (cons, np.zeros(1), U0, 2, 1, 0.25, 1.1)
+    plain = al_ilqr.solve(spec, *al_args)
+    heard = []
+    cb = types.SimpleNamespace(notify=heard.append)
+    hooked = al_ilqr.solve(spec, *al_args, callback=cb)
+    assert [m.split(",")[0] for m in heard] == [
+        f"Iteration {i + 1}" for i in range(int(plain.iterations))]
+    assert torch.equal(hooked.U, plain.U)
+    guarded = al_ilqr.solve(spec, *al_args, guard=True)
+    assert float(guarded.cost) <= float(plain.cost) * (1 + 1e-12)
     with pytest.raises(ValueError, match="nb_deriv must be 1 or 2"):
         make_spec("joint", robot, [], np.ones(7) * 1e-5, H, 3, dt=0.1,
                   device="cpu")

@@ -16,6 +16,7 @@ up to 117.7, measured 8.7e-8) and its X and U 1e-7 (U measured 2.0e-8 on
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -261,9 +262,19 @@ def test_solve_batch_route_follows_the_spec_and_dispatch_errors_raise(monkeypatc
 def test_unported_arguments_raise():
     _, spec = _specs("joint", 1)
     U0 = _U0(spec)
-    for kw in (dict(guard=True), dict(callback=object())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-            ilqr.solve(spec, U0, 2, **kw)
+    # the hooks are in: a callback hears each executed iteration, in order,
+    # and leaves the solve as it was; the guard never ends above it
+    heard = []
+    cb = types.SimpleNamespace(notify=heard.append)
+    res = ilqr.solve(spec, U0, 2, callback=cb)
+    plain = ilqr.solve(spec, U0, 2)
+    assert [m.split(",")[0] for m in heard] == [
+        f"Iteration {i + 1}" for i in range(int(res.iterations))]
+    assert heard[-1].split("Cost: ")[1].split(",")[0] == f"{float(plain.cost):g}"
+    assert torch.equal(res.U, plain.U) and torch.equal(res.cost, plain.cost)
+    guarded = ilqr.solve(spec, U0, 2, guard=True)
+    assert bool(torch.isfinite(guarded.cost))
+    assert float(guarded.cost) <= float(plain.cost) * (1 + 1e-12)
     with pytest.raises(ValueError, match="mutually exclusive"):
         ilqr.solve(spec, U0, 2, record=True, callback=object())
     with pytest.raises(ValueError, match="'scan' or 'pscan'"):
