@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Fourteen paths, each through `ilqr_planner_torch.parallel.solve_batch`
+Fourteen paths (and six more below, since the per-lane leaves and the
+sharded solves), each through `ilqr_planner_torch.parallel.solve_batch`
 (al_h400: `solve_batch_al_staged`; batch_gn, batch_cp: `solve_batch_gn`),
 float32:
   flagship   position + quaternion via-points at steps 49 and 99, H=100,
@@ -29,12 +30,12 @@ float32:
   sequential_h600_recursive, hybrid_h500_recursive, planar2d_recursive
              sequential_h600, the hybrid joint + position/orientation spec
              (H=500, B=8192) and planar2d through solve_batch(prefer_fleet=
-             False) (riccati at (7, 12), (7, 13) and (3, 2)), 1 timed repeat;
+             False) (riccati at (7, 12), (7, 13) and (3, 2));
   al_h400    AL-iLQR: posorn, keypoints at 199 and 399, H=400, dt=0.01,
              the bound x5 <= 2 (a 14-row A, 13 rows zero), duals from b,
              100 iterations staged (first stage 45, buckets of 512), B=8192
              (the bound folds into the stage rows: segment_backward at
-             H=400), 1 timed repeat;
+             H=400);
   timeopt2nd the time-optimal double integrator of the reference tutorial:
              spacetime keypoints at 24 (t=2.5) and 49 (t=5), H=50, 10
              iterations, B=2048 (the fleet's generic sweep and rollout in
@@ -45,7 +46,19 @@ float32:
              flagship problem, B=4096, 10 iterations, q0 = Q0 + 0.05 N(0, 1)
              (seed 0), u0 = 0; batch_cp with the unit-step primitives
              kron(unitstep(99, 2), I7) (no kernel: dense library calls, as
-             in the JAX package).
+             in the JAX package);
+  overrides_f5_all_leaves, overrides_f5_limits_mask  the recursive path's
+             problem (B=4096) with per-lane Rt (log-uniform 1e-6 to 1e-4),
+             dt (U(0.08, 0.12)), the Panda's joint limits shrunk by U(0,
+             0.3) of each lane's range, penalty (U(0.5, 2)) and the step-49
+             keypoint off on every odd lane (seed 12): every leaf (a per-lane
+             Rt and dt take the generic recursion: riccati 0 launches), then
+             the limit leaves and the mask alone (riccati once a sweep);
+  sharded_flagship, sharded_recursive, chunked_recursive
+             `parallel.solve_batch_sharded` on a one-rank mesh (the
+             flagship, B=36864, and the recursive path, B=4096) and
+             `solve_batch_chunked` on the recursive path in chunks of 1024;
+  fleet_step `parallel.spmd.fleet_step` on a 1 x 1 (dp, sp) mesh, B=4096.
 
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device and build: the card's name and power limit; the nvcc build of
@@ -161,6 +174,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
      POS_ORN_MULTI_SYS (a SequentialSystem over two object frames, H=600:
      riccati at (7, 12) once an iteration, card vs CPU 1e-9); and riccati
      at B=1, the batch of every such solve, against its twin.
+ 10. overrides_f5: the two overrides_f5 paths end to end (counts at 0 just
+     before each first solve, 2 timed repeats; riccati 0 launches with every
+     leaf, once a sweep with the limits and mask; no fleet kernel); then 64
+     lanes of each, of solve_batch_al (x5 <= 1.5, 12 iterations) and of
+     solve_batch_gn with per-lane Rt, dt and state_max, float64 card against
+     CPU under phase 4's per-lane rule.
+ 11. sharded: solve_batch_sharded at world size 1, the flagship bit for bit
+     the flagship's solve_batch (segment_backward once a sweep) and the
+     recursive route bit for bit solve_batch(prefer_fleet=False) (riccati
+     once a sweep), no torch.distributed collective called;
+     solve_batch_chunked on the recursive path (chunks of 1024) each lane
+     bit for bit the unchunked solve's, riccati the sum of the chunks'
+     sweeps, with the peak memory of each (torch.cuda.max_memory_allocated
+     over the memory before it); solves/s of each, 2 timed repeats.
+ 12. spmd: solve_batch_sp at world size 1 on the batch_gn problem's first
+     scenario (float64) against batch.solve on the card (u within 1e-9 of
+     max |u|, cost rtol 1e-9, the same iterations); fleet_step on a 1 x 1
+     mesh at B=4096, its costs bit for bit the fleet's, segment_backward
+     once a sweep, no collective.
 Then the kernel table and, last, {"ok": true, "device": {...}}. Every JSON
 line also goes to chiprun_out/chip_smoke.jsonl.
 
@@ -938,21 +970,7 @@ def _drive(torch, spec, x0s, U0s, nb_iter, prefer_fleet=True, extra_ov=None,
         return solve_batch(spec, ov, U0s_t, n, prefer_fleet=prefer_fleet,
                            record=record)
 
-    torch.cuda.synchronize()
-    _reset_counts()
-    t0 = time.time()
-    res = run()
-    torch.cuda.synchronize()
-    first_s = time.time() - t0
-    counts = _read_counts()
-    times = []
-    for _ in range(REPEATS if repeats is None else repeats):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        res = run()
-        torch.cuda.synchronize()
-        times.append(time.time() - t0)
-    return res, counts, first_s, times, run
+    return _timed_runs(torch, run, repeats) + (run,)
 
 
 def _result_summary(res, batch, first_s, times, counts, shapes):
@@ -1120,7 +1138,7 @@ def _cpu_spread(solve, spec_cpu, x0s, U0s, c_cpu=None):
 
 
 def _card_vs_cpu(torch, path, solve, spec_fn, x0s, U0s, kernels, sensitive,
-                 rel=XCHECK_REL, u_rel=None, **info):
+                 rel=XCHECK_REL, u_rel=None, nan_ok=False, **info):
     """64 lanes of a problem in float64, `solve(spec, x0s, U0s)` on the card
     (the path's kernels) and on the CPU (their twins): the same iterations
     and alpha (where the result has one: AL results do not) on every lane,
@@ -1129,7 +1147,8 @@ def _card_vs_cpu(torch, path, solve, spec_fn, x0s, U0s, kernels, sensitive,
     more than 1e-9 relative when x0 moves by 1e-15 relative (up or down) is
     held to 10 times that move instead. The card must launch each of `kernels`, the CPU none.
     With `u_rel`, the controls (U, or the batch solver's flattened u) also
-    within u_rel of the CPU's largest |U|.
+    within u_rel of the CPU's largest |U|. With `nan_ok`, lanes whose CPU
+    cost is NaN must be NaN on the card and are left out of the rest.
     -> (the card's result, the card's spec)"""
     res, counts, specs = {}, {}, {}
     for dev in ("cuda", "cpu"):
@@ -1141,6 +1160,13 @@ def _card_vs_cpu(torch, path, solve, spec_fn, x0s, U0s, kernels, sensitive,
         counts[dev] = _read_counts()
     gpu, cpu = res["cuda"], res["cpu"]
     c_gpu, c_cpu = gpu.cost.cpu().numpy(), cpu.cost.numpy()
+    nan = np.isnan(c_cpu)
+    if nan_ok:
+        info["nan_lanes"] = np.flatnonzero(nan).tolist()
+        info["same_nan_lanes"] = bool(np.array_equal(np.isnan(c_gpu), nan))
+        if not info["same_nan_lanes"]:
+            fail(f"{path}: the card's NaN lanes are not the CPU's")
+        c_gpu, c_cpu = np.where(nan, 1.0, c_gpu), np.where(nan, 1.0, c_cpu)
     tol_rel = rel
     rel = np.abs(c_gpu - c_cpu) / np.abs(c_cpu)
     tol = np.full(rel.shape, tol_rel)
@@ -1156,7 +1182,8 @@ def _card_vs_cpu(torch, path, solve, spec_fn, x0s, U0s, kernels, sensitive,
            "tolerance": tol_rel}
     over = np.flatnonzero(rel > tol_rel)
     if sensitive and over.size:
-        spread = _cpu_spread(solve, specs["cpu"], x0s, U0s, c_cpu)
+        spread = np.nan_to_num(_cpu_spread(solve, specs["cpu"], x0s, U0s,
+                                           c_cpu))
         tol[over] = np.maximum(tol_rel, XCHECK_SENS_FACTOR * spread[over])
         out["lanes_over_1e-8"] = [
             {"lane": int(i), "rel_diff": float(rel[i]),
@@ -1168,8 +1195,9 @@ def _card_vs_cpu(torch, path, solve, spec_fn, x0s, U0s, kernels, sensitive,
         "median_iterations": float(np.median(cpu.iterations.numpy())),
         "card_kernel_launches": {k: counts["cuda"][k] for k in KERNELS},
         "cpu_kernel_launches": {k: counts["cpu"][k] for k in KERNELS},
-        "U_max_abs_diff": float((_controls(gpu).cpu() - _controls(cpu)).abs().max()),
-        "U_max_abs": float(_controls(cpu).abs().max())})
+        "U_max_abs_diff": float((_controls(gpu).cpu() - _controls(cpu))[
+            ~torch.as_tensor(nan)].abs().max()),
+        "U_max_abs": float(_controls(cpu)[~torch.as_tensor(nan)].abs().max())})
     emit(out)
     if not (np.isfinite(c_gpu).all() and np.isfinite(c_cpu).all()):
         fail(f"{path}: non-finite costs")
@@ -1384,9 +1412,8 @@ PLANAR_B, PLANAR_JAX_COST = 4096, 2.705e-4
 HYBRID_H, HYBRID_B, HYBRID_JAX_COST = 500, 8192, 2.437e-4
 # timed repeats of each recursive-route run of the sequential, hybrid and
 # planar problems and of al_h400 (a solve there takes seconds: the
-# recursion is host-bound over H steps); one keeps the whole script within
-# its time with the pylqr phase
-RECURSIVE_SLICE_REPEATS = 1
+# recursion is host-bound over H steps)
+RECURSIVE_SLICE_REPEATS = 2
 # the two object frames of the reference's multi-frame tutorial
 OBJ_QUATS = ([0.63758403393523, 0.2994657314658187, 0.6042309402208079,
               -0.37244039285286973],
@@ -2060,20 +2087,8 @@ def phase_al_h400(torch):
     def run(n=AL_NB_ITER):
         return solve(spec, x0, U0, n)
 
-    torch.cuda.synchronize()
-    _reset_counts()
-    t0 = time.time()
-    res = run()
-    torch.cuda.synchronize()
-    first_s = time.time() - t0
-    counts = _read_counts()
-    times = []
-    for _ in range(RECURSIVE_SLICE_REPEATS):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        res = run()
-        torch.cuda.synchronize()
-        times.append(time.time() - t0)
+    res, counts, first_s, times = _timed_runs(torch, run,
+                                              RECURSIVE_SLICE_REPEATS)
     it = res.iterations.cpu().numpy()
     first = AL_STAGED["first_stage"]
     # stage 1 sweeps min(max it, first stage) times; the lanes that used
@@ -2273,20 +2288,7 @@ def phase_batch_gn(torch, name):
     def run():
         return solve(spec, x0s, u0s)
 
-    torch.cuda.synchronize()
-    _reset_counts()
-    t0 = time.time()
-    res = run()
-    torch.cuda.synchronize()
-    first_s = time.time() - t0
-    counts = _read_counts()
-    times = []
-    for _ in range(GN_REPEATS):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        res = run()
-        torch.cuda.synchronize()
-        times.append(time.time() - t0)
+    res, counts, first_s, times = _timed_runs(torch, run, GN_REPEATS)
     kernels, wall_s, _ = _profiled(torch, name, run)
     busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
     cost = res.cost.double().cpu().numpy()
@@ -2698,6 +2700,18 @@ def _timed_solve(torch, fn):
     return out, time.time() - t0, _read_counts()
 
 
+def _timed_runs(torch, run, repeats=None):
+    """run() with every count at 0 just before it, then `repeats` (default
+    REPEATS) timed ones -> (the last result, the first run's counts, its
+    seconds, the repeats' seconds)."""
+    res, first_s, counts = _timed_solve(torch, run)
+    times = []
+    for _ in range(REPEATS if repeats is None else repeats):
+        res, t, _ = _timed_solve(torch, run)
+        times.append(t)
+    return res, counts, first_s, times
+
+
 def _gate_pylqr(out, ok, what):
     emit(out)
     if not ok:
@@ -2885,7 +2899,9 @@ def phase_pylqr(torch):
     # POS_ORN_SYS_AL_ILQR at the tutorial's size
     from ilqr_planner_torch.solvers.ilqr import _traj_cost
 
-    def al_run(dev, q0=Q0):
+    def al_run(dev, q0=Q0, unconstrained=False):
+        """The AL solve, timed once; with `unconstrained`, the tutorial's
+        plain solve before it (the card's first run only)."""
         _, s = _pylqr_posorn(compat, dev, AL_H, 0.01, q0)
         ua = np.zeros((AL_H - 1, N))
         A, b = np.zeros((2 * N, 2 * N)), np.zeros(2 * N)
@@ -2896,8 +2912,11 @@ def phase_pylqr(torch):
             c.A, c.b = A, b
             cons.append(c)
         cb1, cb2 = MetricsCallback(), MetricsCallback()
-        (X1, _, _, _, _, c1), w1, n1 = _timed_solve(
-            torch, lambda: solver.ILQRRecursive(s).solve(ua, 10, True, True, cb1))
+        X1 = w1 = n1 = None
+        if unconstrained:
+            (X1, _, _, _, _, _), w1, n1 = _timed_solve(
+                torch, lambda: solver.ILQRRecursive(s).solve(ua, 10, True, True,
+                                                             cb1))
         (X2, F2, U2), w2, n2 = _timed_solve(
             torch, lambda: solver.AL_ILQR(s, cons, [b] * (AL_H - 1)).solve(
                 ua, 100, 5, .25, 1.1, True, True, cb2))
@@ -2906,7 +2925,7 @@ def phase_pylqr(torch):
         return {"X1": X1, "X2": X2, "U2": U2, "cost": cost, "walls": (w1, w2),
                 "launches": (n1, n2), "iterations": (len(cb1.costs),
                                                      len(cb2.costs))}
-    al = {dev: al_run(dev) for dev in ("cuda", "cpu")}
+    al = {"cuda": al_run("cuda", unconstrained=True), "cpu": al_run("cpu")}
     rel = abs(al["cuda"]["cost"] / al["cpu"]["cost"] - 1)
     spread, tol = None, XCHECK_REL
     if rel > XCHECK_REL:
@@ -2917,8 +2936,7 @@ def phase_pylqr(torch):
     g = al["cuda"]
     out = {"phase": "pylqr", "problem": "pos_orn_sys_al_ilqr", "H": AL_H,
            "dt": 0.01, "wall_s": {"ilqr": g["walls"][0], "al_ilqr": g["walls"][1]},
-           "cpu_wall_s": {"ilqr": al["cpu"]["walls"][0],
-                          "al_ilqr": al["cpu"]["walls"][1]},
+           "cpu_wall_s": {"al_ilqr": al["cpu"]["walls"][1]},
            "iterations": {"ilqr": g["iterations"][0], "al_ilqr": g["iterations"][1]},
            "launches": {"ilqr": g["launches"][0], "al_ilqr": g["launches"][1]},
            "max_x5": {"unconstrained": float(g["X1"][:, 5].max()),
@@ -2928,8 +2946,8 @@ def phase_pylqr(torch):
                            "tolerance": tol, "cost": g["cost"],
                            "U_max_abs_diff": float(np.abs(
                                g["U2"] - al["cpu"]["U2"]).max()),
-                           "same_iterations": g["iterations"]
-                           == al["cpu"]["iterations"]}}
+                           "same_iterations": g["iterations"][1]
+                           == al["cpu"]["iterations"][1]}}
     _gate_pylqr(out, out["max_x5"]["al_ilqr"] <= AL_BOUND + 1e-2
                 and rel <= tol and out["card_vs_cpu"]["same_iterations"],
                 "AL tutorial: bound, iterations or card vs CPU off")
@@ -2985,6 +3003,322 @@ def phase_pylqr(torch):
                               lambda dt_: ric.launch_geometry(1, dt_, N, NQ),
                               lambda dt_: ric.kernel_geometry(1, dt_, N, NQ))
     return _gate_kernel(kv), riccati_launches
+
+
+# ---------------------------------------------------------------------------
+# per-lane overrides of every Spec leaf; sharded, chunked and spmd solves
+# ---------------------------------------------------------------------------
+
+# the Panda's joint limits (models/data/panda.urdf)
+PANDA_LO = np.array([-2.8973, -1.7628, -2.8973, -3.0718, -2.8973, -0.0175,
+                     -2.8973])
+PANDA_HI = np.array([2.8973, 1.7628, 2.8973, -0.0698, 2.8973, 3.7525, 2.8973])
+F5_SEED = 12
+F5_LIMIT_LEAVES = ("state_min", "state_max", "penalty", "kp_mask")
+F5_SOLVER_LEAVES = ("Rt", "dt", "state_max")   # the AL and GN checks
+# float32 lanes whose recursion overflows to NaN under binding limits: the
+# JAX package's own float32 recursive solve does so on 1 of the first 256
+# lanes of the limits-and-mask problem on the CPU (float64: none)
+F5_NAN_SHARE_GATE = 0.05
+CHUNK = 1024
+
+
+def f5_overrides(batch, names=None, dt=0.1):
+    """Per-lane leaves of the flagship problem, float64 numpy, made from a
+    fixed seed: Rt log-uniform in [1e-6, 1e-4], dt U(0.8, 1.2) times the
+    problem's, the Panda's joint limits with each lane's range shrunk by
+    U(0, 0.3) of its width (half at each end), penalty U(0.5, 2), and the
+    step-49 keypoint off on every odd lane."""
+    rng = np.random.default_rng(F5_SEED)
+    shrink = rng.uniform(0, 0.3, (batch, N)) * (PANDA_HI - PANDA_LO) / 2
+    mask = np.zeros((batch, H))
+    mask[:, 99] = 1.0
+    mask[::2, 49] = 1.0
+    ov = {"Rt": 10.0 ** rng.uniform(-6, -4, (batch, N)),
+          "dt": dt * rng.uniform(0.8, 1.2, batch),
+          "state_min": PANDA_LO + shrink, "state_max": PANDA_HI - shrink,
+          "penalty": rng.uniform(0.5, 2.0, batch), "kp_mask": mask}
+    return {k: ov[k] for k in (names or ov)}
+
+
+def phase_overrides_f5(torch):
+    """The recursive path's problem (B=4096, float32) through solve_batch
+    with per-lane leaves: every leaf (a per-lane Rt and dt take the generic
+    recursion `_backward_core`: riccati 0 launches), then the limit leaves
+    and the keypoint mask alone (riccati once a backward sweep). Counts at
+    0 just before each first solve, then 2 timed repeats; the share of
+    lanes whose float32 solve ends in NaN at most 5% (the shrunk limits
+    bind on most lanes). Then 64 lanes of each, of solve_batch_gn with
+    per-lane Rt, dt and state_max, and of solve_batch_al on al_h400's
+    problem (x5 <= 2, 12 iterations; dt U(0.8, 1.2) times its 0.01) with
+    the same leaves, float64 card against CPU under the per-lane rule of
+    phase 4. The AL solve ends in NaN on a few lanes, as the JAX package's
+    float64 solve does on the same lanes; the card must give NaN on
+    exactly the CPU's."""
+    from ilqr_planner_torch.parallel import (solve_batch, solve_batch_al,
+                                             solve_batch_gn)
+
+    spec = flagship_spec(torch, torch.float32, "cuda")
+    q0s, U0s = recursive_batch(REC_B)
+    outs = {}
+    for label, names, riccati in (("all_leaves", None, False),
+                                  ("limits_mask", F5_LIMIT_LEAVES, True)):
+        ov = {k: torch.as_tensor(v, dtype=torch.float32, device="cuda")
+              for k, v in f5_overrides(REC_B, names).items()}
+        res, counts, first_s, times, run = _drive(torch, spec, q0s, U0s,
+                                                  NB_ITER, extra_ov=ov)
+        sweeps = int(res.iterations.max())
+        name = f"overrides_f5_{label}"
+        cost = res.cost.double().cpu().numpy()
+        out = {"phase": "end_to_end", "path": name, "nb_iter": NB_ITER,
+               "leaves": sorted(ov),
+               **_result_summary(res, REC_B, first_s, times, counts,
+                                 ((REC_B, H, N), (REC_B, H - 1, N),
+                                  (REC_B, H, 7))),
+               "nan_lanes": int(np.isnan(cost).sum()),
+               "median_cost_finite_lanes": float(np.nanmedian(cost)),
+               "converged_frac": float(np.mean(cost < 1e-4)),
+               "backward_sweeps": sweeps,
+               "line_search_trials": counts["recursive_trials"]}
+        emit(out)
+        if not out["shapes_ok"] or out["nan_lanes"] > F5_NAN_SHARE_GATE * REC_B:
+            fail(f"{name}: wrong shapes, or {out['nan_lanes']} lanes NaN")
+        want = sweeps if riccati else 0
+        others = [k for k in KERNELS if counts[k] and k != "riccati"]
+        if sweeps == 0 or counts["riccati"] != want or others or counts["trials"]:
+            fail(f"{name}: riccati launched {counts['riccati']} times for "
+                 f"{sweeps} sweeps (want {want}); other kernels {others}, "
+                 f"{counts['trials']} fleet trials")
+        outs[label] = (out, run)
+
+    q64, U64 = recursive_batch(XCHECK_B)
+    for label, names, kernels in (("all_leaves", None, ()),
+                                  ("limits_mask", F5_LIMIT_LEAVES, ("riccati",))):
+        ov = f5_overrides(XCHECK_B, names)
+        _card_vs_cpu(torch, f"overrides_f5_{label}",
+                     lambda s, x0s, U0s, ov=ov: solve_batch(
+                         s, {"x0": x0s, **ov}, U0s, NB_ITER),
+                     flagship_spec, q64, U64, kernels, True, leaves=sorted(ov))
+    ov = f5_overrides(XCHECK_B, F5_SOLVER_LEAVES)
+    _card_vs_cpu(torch, "overrides_f5_gn",
+                 lambda s, x0s, u0s: solve_batch_gn(
+                     s, GN_KP, {"x0": x0s, **ov}, u0s, GN_NB_ITER),
+                 flagship_spec, q64, np.zeros((XCHECK_B, (H - 1) * N)), (),
+                 True, leaves=sorted(ov))
+    ov_al = f5_overrides(XCHECK_B, F5_SOLVER_LEAVES, dt=0.01)
+
+    def al(s, x0s, U0s):
+        cons, b = al_constraints(torch, s.dtype, s.device)
+        return solve_batch_al(s, cons, b, {"x0": x0s, **ov_al}, U0s,
+                              AL_XCHECK_ITERS, *AL_ARGS)
+
+    q_al, U_al = al_batch(XCHECK_B)
+    _card_vs_cpu(torch, "overrides_f5_al", al, al_spec, q_al, U_al, (), True,
+                 nan_ok=True, leaves=sorted(ov_al), nb_iter=AL_XCHECK_ITERS)
+    return outs
+
+
+class _Collectives:
+    """Counts the torch.distributed collectives called inside the block."""
+
+    NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+             "broadcast", "barrier")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.count, self._saved = 0, {}
+        for name in self.NAMES:
+            fn = getattr(dist, name)
+            self._saved[name] = fn
+
+            def counted(*a, _fn=fn, **kw):
+                self.count += 1
+                return _fn(*a, **kw)
+            setattr(dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self._saved.items():
+            setattr(dist, name, fn)
+
+
+
+
+def _equal_fields(a, b):
+    """Every field of two results bit for bit (None on both, or equal)."""
+    import dataclasses
+
+    import torch
+
+    def same(x, y):
+        if x is None or y is None:
+            return x is y
+        return bool(torch.equal(x, y))
+    return all(same(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
+def phase_sharded(torch, flagship_run, recursive_run):
+    """solve_batch_sharded at world size 1 (a one-rank mesh on the card):
+    on the flagship (B=36864) bit for bit the flagship phase's solve_batch,
+    segment_backward once a sweep, no collective; its recursive route on
+    the recursive path (B=4096) bit for bit solve_batch(prefer_fleet=False),
+    riccati once a sweep; solve_batch_chunked on the recursive path in
+    chunks of 1024, each lane bit for bit the unchunked solve's, riccati
+    the sum of the four chunks' sweeps, the peak memory beside the
+    unchunked solve's. Counts at 0 just before each first solve, then 2
+    timed repeats."""
+    from ilqr_planner_torch.parallel import (make_mesh, solve_batch_chunked,
+                                             solve_batch_sharded)
+
+    mesh = make_mesh(device="cuda")
+    spec = flagship_spec(torch, torch.float32, "cuda")
+    outs = {}
+    for label, batch_fn, batch, prefer, ref_run, kernel in (
+            ("sharded_flagship", flagship_batch, B, True, flagship_run,
+             "segment_backward"),
+            ("sharded_recursive", recursive_batch, REC_B, False, recursive_run,
+             "riccati")):
+        q0s, U0s = batch_fn(batch)
+        x0 = torch.as_tensor(q0s, dtype=torch.float32, device="cuda")
+        U0 = torch.as_tensor(U0s, dtype=torch.float32, device="cuda")
+        ov = {"q0": x0, "x0": x0}
+        with _Collectives() as coll:
+            res, counts, first_s, times = _timed_runs(
+                torch, lambda: solve_batch_sharded(spec, ov, U0, NB_ITER,
+                                                   mesh=mesh,
+                                                   prefer_fleet=prefer))
+        sweeps = int(res.iterations.max())
+        out = {"phase": "end_to_end", "path": label, "nb_iter": NB_ITER,
+               "mesh": mesh.shape,
+               **_result_summary(res, batch, first_s, times, counts,
+                                 ((batch, H, N), (batch, H - 1, N),
+                                  (batch, H, 7))),
+               "collectives": coll.count, "backward_sweeps": sweeps,
+               "bit_for_bit_solve_batch": _equal_fields(res, ref_run())}
+        emit(out)
+        if not (out["bit_for_bit_solve_batch"] and out["finite"]
+                and coll.count == 0):
+            fail(f"{label}: not solve_batch bit for bit, non-finite, or "
+                 f"{coll.count} collectives at world size 1")
+        _gate_only(label, counts, sweeps, kernel)
+        outs[label] = out
+
+    q0s, U0s = recursive_batch(REC_B)
+    x0 = torch.as_tensor(q0s, dtype=torch.float32, device="cuda")
+    U0 = torch.as_tensor(U0s, dtype=torch.float32, device="cuda")
+    ov = {"q0": x0, "x0": x0}
+
+    def peak_of(fn):
+        """fn() -> (its result, the peak memory it allocated, MiB)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    whole, peak_whole = peak_of(recursive_run)
+    (res, counts, first_s, times), peak_chunked = peak_of(
+        lambda: _timed_runs(torch, lambda: solve_batch_chunked(
+            spec, ov, U0, NB_ITER, chunk=CHUNK)))
+    chunk_sweeps = int(res.iterations.view(-1, CHUNK).max(1).values.sum())
+    gap = ((res.cost - whole.cost).abs() / whole.cost.abs()).max()
+    out = {"phase": "end_to_end", "path": "chunked_recursive", "chunk": CHUNK,
+           "nb_iter": NB_ITER,
+           **_result_summary(res, REC_B, first_s, times, counts,
+                             ((REC_B, H, N), (REC_B, H - 1, N), (REC_B, H, 7))),
+           "bit_for_bit_unchunked": _equal_fields(res, whole),
+           "X_bit_for_bit": bool(torch.equal(res.X, whole.X)),
+           "cost_max_rel_gap": float(gap),
+           "same_iterations": bool(torch.equal(res.iterations, whole.iterations)),
+           "chunk_sweeps": chunk_sweeps,
+           "peak_working_mib": {"unchunked": peak_whole,
+                                "chunked": peak_chunked},
+           "unchunked_solves_per_s": outs["sharded_recursive"][
+               "solves_per_s_median"]}
+    emit(out)
+    if not (out["bit_for_bit_unchunked"] and out["finite"]):
+        fail("chunked_recursive: lanes differ from the unchunked solve's, or "
+             "non-finite values")
+    _gate_only("chunked_recursive", counts, chunk_sweeps, "riccati")
+    outs["chunked_recursive"] = out
+    return outs
+
+
+def phase_spmd(torch):
+    """solve_batch_sp at world size 1 on the batch_gn problem's first
+    scenario (H=100, keypoints 49 and 99, 10 iterations, float64) against
+    batch.solve on the card: u within 1e-9 of max |u|, cost rtol 1e-9, the
+    same iterations; and fleet_step on a 1 x 1 mesh at B=4096 (float32),
+    its costs bit for bit the fleet's (solve_batch), segment_backward once
+    a sweep, no collective. 2 timed repeats each."""
+    import dataclasses
+
+    from ilqr_planner_torch.parallel import make_mesh, solve_batch
+    from ilqr_planner_torch.parallel.spmd import fleet_step, solve_batch_sp
+    from ilqr_planner_torch.solvers import batch as tbatch
+
+    q0s, _ = flagship_batch(GN_B)
+    spec = flagship_spec(torch, torch.float64, "cuda")
+    spec = dataclasses.replace(spec, x0=torch.as_tensor(q0s[0], device="cuda"))
+    u0 = torch.zeros((H - 1) * N, dtype=torch.float64, device="cuda")
+    mesh_sp = make_mesh((1,), ("sp",), device="cuda")
+    with _Collectives() as coll:
+        sp, _, sp_first, sp_times = _timed_runs(
+            torch, lambda: solve_batch_sp(spec, GN_KP, GN_NB_ITER, u0, mesh_sp))
+    one, _, one_first, one_times = _timed_runs(
+        torch, lambda: tbatch.solve(spec, GN_KP, GN_NB_ITER, u0))
+    u_diff = float((sp.u - one.u).abs().max())
+    u_max = float(one.u.abs().max())
+    out_sp = {"phase": "spmd", "path": "solve_batch_sp", "dtype": "float64",
+              "mesh": mesh_sp.shape, "nb_iter": GN_NB_ITER,
+              "u_max_abs_diff": u_diff, "u_max_abs": u_max,
+              "cost": float(sp.cost), "cost_batch_solve": float(one.cost),
+              "cost_rel": abs(float(sp.cost) / float(one.cost) - 1),
+              "iterations": int(sp.iterations),
+              "iterations_batch_solve": int(one.iterations),
+              "first_call_s": sp_first, "repeat_times_s": sp_times,
+              "batch_solve_repeat_times_s": one_times,
+              "collectives": coll.count}
+    emit(out_sp)
+    if not (u_diff <= 1e-9 * u_max and out_sp["cost_rel"] <= 1e-9
+            and out_sp["iterations"] == out_sp["iterations_batch_solve"]
+            and coll.count == 0):
+        fail("solve_batch_sp: not batch.solve's result on the card")
+
+    spec = flagship_spec(torch, torch.float32, "cuda")
+    q0s, U0s = recursive_batch(REC_B)
+    x0 = torch.as_tensor(q0s, dtype=torch.float32, device="cuda")
+    U0 = torch.as_tensor(U0s, dtype=torch.float32, device="cuda")
+    ov = {"q0": x0, "x0": x0}
+    mesh = make_mesh((1, 1), ("dp", "sp"), device="cuda")
+    with _Collectives() as coll:
+        step, counts, first_s, times = _timed_runs(
+            torch, lambda: fleet_step(spec, ov, U0, GN_KP, NB_ITER, mesh))
+    ref = solve_batch(spec, ov, U0, NB_ITER)
+    sweeps = int(ref.iterations.max())
+    costs, mean_cost, U_sp, bcost, bit = step
+    out = {"phase": "spmd", "path": "fleet_step", "mesh": mesh.shape,
+           "batch": REC_B, "dtype": "float32", "nb_iter": NB_ITER,
+           "first_call_s": first_s, "repeat_times_s": times,
+           "steps_per_s_median": 1.0 / statistics.median(times),
+           "costs_bit_for_bit_fleet": bool(torch.equal(costs, ref.cost)),
+           "mean_cost": float(mean_cost),
+           "mean_cost_rel": abs(float(mean_cost) / float(ref.cost.mean()) - 1),
+           "batch_cost": float(bcost), "batch_iterations": int(bit),
+           "U_sp_finite": bool(U_sp.isfinite().all()),
+           "launches": counts, "backward_sweeps": sweeps,
+           "collectives": coll.count}
+    emit(out)
+    if not (out["costs_bit_for_bit_fleet"] and out["mean_cost_rel"] <= 1e-6
+            and coll.count == 0):
+        fail("fleet_step: costs not the fleet's, or a collective at 1 x 1")
+    _gate_only("fleet_step", counts, sweeps)
+    return {"solve_batch_sp": out_sp, "fleet_step": out}
 
 
 def main():
@@ -3050,6 +3384,11 @@ def main():
     timed("gn_cross_checks", phase_gn_cross_checks, torch)
     timed("lqt_h400", phase_lqt, torch)
     timed("pscan", phase_pscan, torch)
+    # per-lane overrides of every leaf, the sharded, chunked and spmd solves
+    f5 = timed("overrides_f5", phase_overrides_f5, torch)
+    sh = timed("sharded", phase_sharded, torch, e2e["flagship"][1],
+               e2e["recursive"][1])
+    sp = timed("spmd", phase_spmd, torch)
     # the PyLQR drop-in API, float64, and riccati at its batch of one
     kv_b1, pylqr_launches = timed("pylqr", phase_pylqr, torch)
 
@@ -3072,9 +3411,13 @@ def main():
     pallas = "ilqr_planner_tpu/ops/pallas_kernels/"
     sb_src = pallas + "segment_backward.py:339"
     ric_src = pallas + "riccati.py:258"
-    riccati_row = row("riccati", "riccati.cu", ric_src, kv["riccati"],
-                      e2e["recursive"][0]["launches"]["riccati"], "recursive",
-                      width="7x6")
+    riccati_row = row(
+        "riccati", "riccati.cu", ric_src, kv["riccati"],
+        e2e["recursive"][0]["launches"]["riccati"], "recursive", width="7x6",
+        launches_overrides_f5_limits_mask=f5["limits_mask"][0]["launches"]["riccati"],
+        launches_overrides_f5_all_leaves=f5["all_leaves"][0]["launches"]["riccati"],
+        launches_sharded_recursive=sh["sharded_recursive"]["launches"]["riccati"],
+        launches_chunked=sh["chunked_recursive"]["launches"]["riccati"])
     for key in ("riccati_dense", f"riccati_b{B}", f"riccati_dense_b{B}"):
         tag = key.removeprefix("riccati_")
         riccati_row.update({f"ms_{tag}": kv[key]["kernel_ms_f32"],
@@ -3088,6 +3431,8 @@ def main():
             kv["segment_backward"],
             e2e["flagship"][0]["launches"]["segment_backward"], "flagship",
             width="n=7 H=100", launches_flagship_ov=ov_launches,
+            launches_sharded=sh["sharded_flagship"]["launches"]["segment_backward"],
+            launches_fleet_step=sp["fleet_step"]["launches"]["segment_backward"],
             profiled_device_ms_flagship_ov=profiled["flagship_ov"].get(
                 "segment_backward")),
         row("segment_backward", "segment_backward.cu", sb_src,

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ilqr_planner_torch.models.chain import KinematicChain
+from ilqr_planner_torch.ops import so3
 from ilqr_planner_torch.utils.device import resolve_device
 
 __all__ = ["parse_urdf", "chain_from_urdf"]
@@ -21,21 +22,10 @@ _ACTUATED = ("revolute", "continuous", "prismatic")
 
 
 def _rpy_mat(r, p, y):
-    """URDF fixed-axis rpy: R = Rz(y) Ry(p) Rx(r)."""
-
-    def rx(a):
-        c, s = np.cos(a), np.sin(a)
-        return np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
-
-    def ry(a):
-        c, s = np.cos(a), np.sin(a)
-        return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
-
-    def rz(a):
-        c, s = np.cos(a), np.sin(a)
-        return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
-
-    return rz(y) @ ry(p) @ rx(r)
+    """URDF fixed-axis rpy, R = Rz(y) Ry(p) Rx(r), from host floats to a
+    float64 numpy matrix (`so3.rpy_matrix`)."""
+    r, p, y = (torch.tensor(float(v), dtype=torch.float64) for v in (r, p, y))
+    return so3.rpy_matrix(r, p, y).numpy()
 
 
 def _vec(attr, default):

@@ -1,13 +1,73 @@
-"""SO(3) utilities: Rodrigues rotations and robust quaternion extraction.
+"""SO(3) utilities: rotation constructors and robust quaternion extraction.
 
-PyTorch counterpart of the JAX package's `ops/so3.py`, for what the chain
-kinematics need. Quaternions are w-first: [w, x, y, z]. Layouts follow the
-JAX functions: a leading batch, the 3 x 3 or 4 on the trailing axes.
+PyTorch counterpart of the JAX package's `ops/so3.py`. Quaternions are
+w-first: [w, x, y, z]. Layouts follow the JAX functions: a leading batch,
+the 3 x 3 or 4 on the trailing axes; the axis rotations take an angle
+tensor of any shape (...) and return (..., 3, 3), a scalar angle one
+matrix as in the JAX package.
 """
 
 import torch
 
-__all__ = ["axis_angle", "mat_to_quat", "quat_to_mat"]
+__all__ = [
+    "rot_x",
+    "rot_y",
+    "rot_z",
+    "rpy_matrix",
+    "euler_zyx",
+    "axis_angle",
+    "mat_to_quat",
+    "quat_to_mat",
+    "cross",
+]
+
+
+def _mat3(rows):
+    """Nine (...) tensors, row by row -> (..., 3, 3)."""
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def _cos_sin(a):
+    a = torch.as_tensor(a)
+    if not a.is_floating_point():
+        a = a.to(torch.get_default_dtype())
+    c, s = torch.cos(a), torch.sin(a)
+    return c, s, torch.ones_like(c), torch.zeros_like(c)
+
+
+def rot_x(a):
+    """Rotation matrix about the x axis by angle a (radians)."""
+    c, s, one, zero = _cos_sin(a)
+    return _mat3([[one, zero, zero], [zero, c, -s], [zero, s, c]])
+
+
+def rot_y(a):
+    """Rotation matrix about the y axis by angle a (radians)."""
+    c, s, one, zero = _cos_sin(a)
+    return _mat3([[c, zero, s], [zero, one, zero], [-s, zero, c]])
+
+
+def rot_z(a):
+    """Rotation matrix about the z axis by angle a (radians)."""
+    c, s, one, zero = _cos_sin(a)
+    return _mat3([[c, -s, zero], [s, c, zero], [zero, zero, one]])
+
+
+def rpy_matrix(r, p, y):
+    """URDF fixed-axis roll/pitch/yaw: R = Rz(y) @ Ry(p) @ Rx(r)."""
+    return rot_z(y) @ rot_y(p) @ rot_x(r)
+
+
+def euler_zyx(alpha, beta, gamma):
+    """KDL Rotation::EulerZYX(a, b, g) = Rz(a) @ Ry(b) @ Rx(g), the virtual
+    tip frame's rotation (its rpy vector in order [0], [1], [2])."""
+    return rot_z(alpha) @ rot_y(beta) @ rot_x(gamma)
+
+
+def cross(a, b):
+    """Cross product over the trailing axis (broadcasting)."""
+    a, b = torch.broadcast_tensors(torch.as_tensor(a), torch.as_tensor(b))
+    return torch.linalg.cross(a, b, dim=-1)
 
 
 def axis_angle(axis, theta):

@@ -1,8 +1,6 @@
-"""Scenario batching: one call solves a batch of problems on one device.
+"""Scenario batching on one device, and sharded over ranks on a mesh.
 
-PyTorch counterpart of `solve_batch`, `solve_batch_staged`,
-`solve_batch_al`, `solve_batch_al_staged`, `solve_batch_gn` and
-`batch_specs` in the JAX package's `parallel/mesh.py`. A spec in the fleet's scope whose
+PyTorch counterpart of the JAX package's `parallel/mesh.py`. A spec in the fleet's scope whose
 per-scenario leaves are the initial state and the fleet's keypoint
 overrides (`FLEET_OVERRIDES`) goes to the lane-major fleet solver
 (`solvers/fleet.py`); built solvers are memoized by the spec's content, the
@@ -16,51 +14,185 @@ shared constraints and only the initial state per scenario, the batched
 `solvers/al_ilqr.py` everything else. The route follows from the spec, the
 override names, the constraints' shape and `prefer_fleet` alone: an error
 in the fleet raises, it is never answered by the other solver.
+
+A mesh (`make_mesh`) is a set of ranks, one process a card, with named
+axes; a sharded solve (`solve_batch_sharded`) runs the same program on
+every rank over its slice of the batch, and its collectives are
+torch.distributed calls on the axis's process group. Without a process
+group the mesh is one rank, whose collectives are the identity.
+`solve_batch_chunked` solves fixed-size chunks one after another on one
+device.
 """
 
 import dataclasses
 import hashlib
+import math
 from collections import OrderedDict
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ilqr_planner_torch.solvers import al_ilqr, batch as batch_solver, ilqr
 from ilqr_planner_torch.solvers.fleet import (FLEET_OVERRIDES, fleet_supported,
                                               make_fleet_solver,
                                               make_fleet_solver_al)
+from ilqr_planner_torch.systems import funcs
 from ilqr_planner_torch.systems.spec import Spec, split_overrides
+from ilqr_planner_torch.utils.device import resolve_device
 
-__all__ = ["solve_batch", "solve_batch_staged", "solve_batch_al",
-           "solve_batch_al_staged", "solve_batch_gn", "batch_specs"]
+__all__ = ["make_mesh", "solve_batch", "solve_batch_staged", "solve_batch_al",
+           "solve_batch_gn", "solve_batch_sharded", "batch_specs"]
 
 _INITIAL = ("q0", "x0")
 
 
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """Ranks with named axes, one process a card: `shape` maps each axis
+    to its size, `device` is this rank's device, `device_mesh` torch's
+    DeviceMesh over the world's ranks (None for one rank without a process
+    group). A collective over an axis of one rank returns its input and
+    launches nothing."""
+
+    axis_names: tuple
+    sizes: tuple
+    device: torch.device
+    device_mesh: Optional[object] = None
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate on `axis`."""
+        if self.device_mesh is None:
+            return 0
+        return self.device_mesh.get_local_rank(axis)
+
+    def _group(self, axis: str):
+        return self.device_mesh.get_group(axis)
+
+    def all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of t over the ranks of `axis` (a new tensor)."""
+        if self.shape[axis] == 1:
+            return t
+        t = t.clone()
+        dist.all_reduce(t, group=self._group(axis))
+        return t
+
+    def all_gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The ranks' t concatenated along dim 0 in their order on `axis`."""
+        if self.shape[axis] == 1:
+            return t
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.shape[axis])]
+        dist.all_gather(parts, t, group=self._group(axis))
+        return torch.cat(parts)
+
+    def broadcast(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The t of the rank at index 0 of `axis`, on every rank of it."""
+        if self.shape[axis] == 1:
+            return t
+        t = t.clone()
+        group = self._group(axis)
+        dist.broadcast(t, src=dist.get_process_group_ranks(group)[0],
+                       group=group)
+        return t
+
+
+def make_mesh(shape=None, axis_names=("dp",), device=None) -> Mesh:
+    """A mesh over the world's ranks, 1-D by default, on `device` (None:
+    CUDA, this process's card). Where a process group exists it is torch's
+    DeviceMesh (`init_device_mesh`); without one, a one-rank mesh. Raises
+    ValueError where the shape's product is not the world size."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    shape = (world,) if shape is None else tuple(int(n) for n in shape)
+    axis_names = tuple(axis_names)
+    if len(axis_names) != len(shape):
+        raise ValueError(f"mesh shape {shape} needs {len(shape)} axis names, "
+                         f"got {axis_names}")
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh shape {shape} holds {math.prod(shape)} ranks; "
+                         f"the world has {world}")
+    if not dist.is_initialized():
+        return Mesh(axis_names, shape, dev)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return Mesh(axis_names, shape, dev,
+                init_device_mesh(dev.type, shape, mesh_dim_names=axis_names))
+
+
+# every leaf a scenario may carry on the spec: the fleet's keypoint leaves,
+# then those that only the recursive, AL and Gauss-Newton routes take
+LANE_LEAVES = FLEET_OVERRIDES + ("kp_mask", "Rt", "dt", "state_min",
+                                 "state_max", "limit_weight", "penalty")
+
+
 def batch_specs(spec: Spec, overrides: Dict[str, torch.Tensor]) -> Spec:
-    """The spec with its per-scenario keypoint leaves attached: each
-    override of FLEET_OVERRIDES (an array with a leading scenario axis)
-    replaces that leaf, which then carries the scenario axis in front. For
-    a sequential spec an override is a list with one entry a subsystem
-    (None keeps that subsystem's leaf). The initial state ('x0', 'q0')
-    travels beside the spec, not on it. Other leaves raise."""
+    """The spec with its per-scenario leaves attached: each override of
+    LANE_LEAVES (an array with a leading scenario axis) replaces that leaf,
+    which then carries the scenario axis in front. For a sequential spec an
+    override is a list with one entry a subsystem (None keeps that
+    subsystem's leaf); 'Rt' may also be an array, the top level's (the
+    solver's gradient and Hessian in u; each subsystem's own Rt prices its
+    cost), and a sequential spec follows subsystem 0's 'dt'. The initial
+    state ('x0', 'q0') travels beside the spec, not on it.
+
+    A per-lane 'kp_mask' also zeroes the precisions at the steps where no
+    lane and no subsystem keeps a keypoint: the JAX package quadratizes at
+    the union of the keypoint steps (`static_kp_steps`) only. 'dq0' (read
+    by no solver), any other name, and a leaf of the wrong shape raise
+    ValueError."""
     names = set(overrides) - set(_INITIAL)
-    extra = sorted(names - set(FLEET_OVERRIDES))
-    if extra:
-        raise NotImplementedError(
-            f"per-scenario overrides of {extra} are not ported (the port takes "
-            f"{list(_INITIAL + FLEET_OVERRIDES)})")
-
-    def leaf(v):
-        return torch.as_tensor(v, dtype=spec.dtype, device=spec.device)
-
+    if "dq0" in names:
+        raise ValueError("no solver reads 'dq0': pass the per-scenario "
+                         "initial state as 'x0' ([q0, dq0] at nb_deriv 2)")
+    unknown = sorted(names - set(LANE_LEAVES))
+    if unknown:
+        raise ValueError(f"unknown per-scenario overrides {unknown}; a "
+                         f"scenario may carry {list(_INITIAL + LANE_LEAVES)}")
+    seq = spec.kind == "sequential"
+    top = {k: overrides[k] for k in names
+           if seq and k == "Rt" and not isinstance(overrides[k], (list, tuple))}
     parts = split_overrides(spec.kind, len(spec.subs),
-                            {k: overrides[k] for k in names})
-    if spec.kind != "sequential":
-        return dataclasses.replace(spec, **{k: leaf(v) for k, v in parts[0].items()})
-    return dataclasses.replace(spec, subs=tuple(
-        dataclasses.replace(sub, **{k: leaf(v) for k, v in part.items()})
-        for sub, part in zip(spec.subs, parts)))
+                            {k: overrides[k] for k in names - set(top)})
+
+    def attach(s: Spec, part) -> Spec:
+        rep = {}
+        for name, v in part.items():
+            want = tuple(getattr(s, name).shape)
+            v = torch.as_tensor(v, dtype=spec.dtype, device=spec.device)
+            if v.dim() != len(want) + 1 or tuple(v.shape[1:]) != want:
+                raise ValueError(f"override {name!r} must be [B"
+                                 f"{''.join(f', {d}' for d in want)}], got "
+                                 f"{tuple(v.shape)}")
+            rep[name] = v
+        return dataclasses.replace(s, **rep)
+
+    if not seq:
+        return _union_precisions(attach(spec, parts[0]))
+    return _union_precisions(dataclasses.replace(
+        attach(spec, top),
+        subs=tuple(attach(sub, part) for sub, part in zip(spec.subs, parts))))
+
+
+def _union_precisions(spec: Spec) -> Spec:
+    """Where some kp_mask carries the scenario axis: every precision zeroed
+    at the steps where no lane of any subsystem has a keypoint (the same
+    spec otherwise)."""
+    subs = spec.subs if spec.kind == "sequential" else (spec,)
+    if not any(s.kp_mask.dim() > 1 for s in subs):
+        return spec
+    H = spec.horizon
+    live = torch.stack([(s.kp_mask != 0).reshape(-1, H).any(0) for s in subs])
+    m = live.any(0).to(spec.dtype)[:, None, None]
+    subs = tuple(dataclasses.replace(s, prec=s.prec * m) for s in subs)
+    return subs[0] if spec.kind != "sequential" else dataclasses.replace(
+        spec, subs=subs)
 
 
 def _fleet_x0s(spec: Spec, overrides, U0s):
@@ -350,3 +482,89 @@ def solve_batch_gn(spec: Spec, kp_idx, overrides: Dict[str, torch.Tensor],
         batch_specs(spec, overrides), batch_solver.sparse_Q(spec, kp_idx),
         psi, x0s, u0s, kp_idx, int(nb_iter), bool(early_stop),
         psi is not None, batch_solver.fast_supported(spec))
+
+
+def _cat_results(parts):
+    """Results of consecutive lane ranges -> one result, field by field
+    along the scenario axis (None fields stay None)."""
+    first = parts[0]
+    return type(first)(**{
+        f.name: None if getattr(first, f.name) is None
+        else torch.cat([getattr(p, f.name) for p in parts])
+        for f in dataclasses.fields(first)})
+
+
+def solve_batch_chunked(spec: Spec, overrides: Dict[str, torch.Tensor], U0s,
+                        nb_iter: int, chunk: int = 768,
+                        line_search: bool = True, early_stop: bool = True):
+    """A large scenario batch as fixed-size chunks of the recursive route
+    (`solve_batch(..., prefer_fleet=False)`), solved one after another on
+    the spec's device: the working memory is one chunk's. B must be a
+    multiple of `chunk` (else ValueError). The overrides are chunked with
+    their lanes, a sequential spec's lists entry by entry. Each lane is
+    its lane of the unchunked recursive solve (to rounding: a batch of
+    another size may reduce in another order)."""
+    U0s = torch.as_tensor(U0s, dtype=spec.dtype, device=spec.device)
+    B = U0s.shape[0]
+    if B % chunk:
+        raise ValueError(f"batch {B} must be a multiple of chunk {chunk}")
+    parts = []
+    for lo in range(0, B, chunk):
+        idx = torch.arange(lo, lo + chunk, device=spec.device)
+        ov, U0 = _gather((dict(overrides), U0s), idx)
+        parts.append(solve_batch(spec, ov, U0, nb_iter, line_search,
+                                 early_stop, prefer_fleet=False))
+    return _cat_results(parts)
+
+
+def _shard(mesh: Mesh, axis: str, overrides, U0s, device):
+    """This rank's contiguous B / n lanes of the overrides (a sequential
+    spec's lists entry by entry) and of U0s, n the size of `axis`; raises
+    ValueError unless n divides B."""
+    B, n = U0s.shape[0], mesh.shape[axis]
+    if B % n:
+        raise ValueError(f"batch {B} must be a multiple of the {axis!r} "
+                         f"axis size {n}")
+    lo = mesh.index(axis) * (B // n)
+    return _gather((dict(overrides), U0s),
+                   torch.arange(lo, lo + B // n, device=device))
+
+
+def solve_batch_sharded(spec: Spec, overrides: Dict[str, torch.Tensor], U0s,
+                        nb_iter: int, mesh: Optional[Mesh] = None,
+                        axis: str = "dp", line_search: bool = True,
+                        early_stop: bool = True, prefer_fleet: bool = True):
+    """Shard the scenario batch over the ranks of a mesh axis: each rank
+    solves its contiguous B / n lanes with `solve_batch` (the memoized
+    lane-major fleet for a spec and overrides in its scope, else the
+    recursive route) and stops on its own; the results are all-gathered,
+    so every rank returns the whole batch. B must be a multiple of n (else
+    ValueError). `mesh` defaults to `make_mesh()` on the spec's device; on
+    an axis of one rank this is `solve_batch`, with no collective."""
+    mesh = mesh or make_mesh(device=spec.device)
+    U0s = torch.as_tensor(U0s, dtype=spec.dtype, device=spec.device)
+    ov, U0 = _shard(mesh, axis, overrides, U0s, spec.device)
+    res = solve_batch(spec, ov, U0, nb_iter, line_search, early_stop,
+                      prefer_fleet)
+    return type(res)(**{
+        f.name: None if getattr(res, f.name) is None
+        else mesh.all_gather(getattr(res, f.name), axis)
+        for f in dataclasses.fields(res)})
+
+
+def _lane_spec(spec: Spec, overrides, i: int):
+    """(spec, x0 [nx]) of scenario i: the spec with lane i of every
+    override attached (no scenario axis) and lane i's initial state."""
+    spec_b = batch_specs(spec, overrides)
+
+    def one(s: Spec) -> Spec:
+        return dataclasses.replace(s, **{
+            k: getattr(s, k)[i] for k in funcs._LEAF_DIMS
+            if getattr(s, k) is not None and funcs.lane_leaf(s, k)})
+
+    out = one(spec_b)
+    if spec.kind == "sequential":
+        out = dataclasses.replace(out, subs=tuple(one(s) for s in spec_b.subs))
+    x0s = overrides.get("x0", overrides.get("q0"))
+    return out, (spec.x0 if x0s is None
+                 else _fleet_x0s(spec, {"x0": x0s}, None)[i])

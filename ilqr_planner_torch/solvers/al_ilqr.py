@@ -107,13 +107,16 @@ def _backward_core_al(spec: Spec, As, Bs, l_x, l_u, l_xx, lN_x, lN_xx,
     nu = spec.nu
     dtype, dev = l_x.dtype, l_x.device
     Hm1 = l_x.shape[1]
-    R = torch.diag(spec.Rt.to(dtype))
+    R = torch.diag_embed(spec.Rt.to(dtype))        # [nu, nu] or [B, nu, nu]
     eye_reg = ilqr._REG * torch.eye(nu, dtype=dtype, device=dev)
     const_ab = funcs.constant_AB(spec, dtype) if isinstance(As, tuple) else None
-    base = spec.subs[0] if spec.kind == "sequential" else spec
+    base = funcs.base_spec(spec)
     diag_lti = (const_ab is not None and base.nb_deriv == 1
                 and not base.time_optimal)
-    dt = base.dt.to(dtype) if diag_lti else None
+    if diag_lti:
+        # dt against P [B, nx, nx] and against p [B, nx]; one a lane or shared
+        dt = base.dt.to(dtype)
+        dt_m, dt_v = (dt[:, None, None], dt[:, None]) if dt.dim() else (dt, dt)
 
     P, p = lN_xx, lN_x
     Ks = l_x.new_empty((l_x.shape[0], Hm1, nu, spec.nx))
@@ -126,10 +129,10 @@ def _backward_core_al(spec: Spec, As, Bs, l_x, l_u, l_xx, lN_x, lN_xx,
         Icu = Ik[..., None] * cu
         lig = lam_k + Ik * g
         if diag_lti:
-            Qux = dt * P + cuT @ Icx
-            Quu = R + dt * dt * P + cuT @ Icu
+            Qux = dt_m * P + cuT @ Icx
+            Quu = R + dt_m * dt_m * P + cuT @ Icu
             Qxx = l_xx[:, t] + P + cxT @ Icx
-            Qu = l_u[:, t] + dt * p + _mv(cuT, lig)
+            Qu = l_u[:, t] + dt_v * p + _mv(cuT, lig)
             Qx = l_x[:, t] + p + _mv(cxT, lig)
         else:
             A, B = const_ab if const_ab is not None else (As[:, t], Bs[:, t])

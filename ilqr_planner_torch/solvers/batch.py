@@ -38,6 +38,12 @@ Reproduced reference quirks (iteration parity with the JAX package):
   * the line-search floor accepts the trial unconditionally at
     alpha < 1e-3.
 
+Per-scenario leaves (`parallel.mesh.batch_specs`): the targets, dead
+zones, keypoint masks and limits enter the residual and limit rows; a
+per-lane `Rt` gives each lane its own control penalty diagonal, and a
+per-lane `dt` (subsystem 0's) its own closed-form Su [B, rows, (H-1) nu]
+and states. The keypoint precision Q is built once from the spec.
+
 `callback=` is notified of lane 0's (cost before the step, alpha) after
 each iteration, as the JAX package does, and, as there, a solve with a
 callback runs the reference-shaped body.
@@ -73,12 +79,22 @@ class BatchResult:
     iterations: torch.Tensor
 
 
-def _base(spec: Spec) -> Spec:
-    return spec.subs[0] if spec.kind == "sequential" else spec
-
-
 def _mT(a):
     return a.transpose(-1, -2)
+
+
+def _rdiag(spec: Spec, dtype):
+    """The control penalty over the flattened controls, Rt tiled H-1 times:
+    [(H-1) nu], or [B, (H-1) nu] for a per-lane Rt [B, nu]."""
+    Rt = spec.Rt.to(dtype)
+    return Rt.repeat((1,) * (Rt.dim() - 1) + (spec.horizon - 1,))
+
+
+def _dt(spec: Spec, dtype, nd: int):
+    """Subsystem 0's dt in `dtype`: a scalar, or one a lane [B] shaped
+    [B, 1 x nd] to broadcast against tensors with `nd` more axes."""
+    dt = funcs.base_spec(spec).dt.to(dtype)
+    return dt.reshape(dt.shape + (1,) * nd) if dt.dim() else dt
 
 
 def sparse_mu(spec: Spec, kp_idx: Sequence[int]):
@@ -117,14 +133,14 @@ def _block_diag_lanes(Js):
     return out.reshape(*lead, n * r, n * c)
 
 
-def _limits(spec: Spec, x):
-    """(L diagonal, violation q) [..., nx] at the states x; zeros for a
-    sequential spec (the top level sets no limits) and where no limits are
-    set."""
+def _limits(spec: Spec, x, ks):
+    """(L diagonal, violation q) [..., nx] at the states x [..., len(ks),
+    nx] of the steps ks; zeros for a sequential spec (the top level sets no
+    limits) and where no limits are set."""
     if spec.kind == "sequential" or not spec.limits_set:
         zero = torch.zeros_like(x)
         return zero, zero
-    return funcs.limit_terms(spec, x)
+    return funcs.limit_terms(spec, x, ks)
 
 
 def _kp_rows(spec: Spec, fX_kp, X_prev, ks):
@@ -134,7 +150,7 @@ def _kp_rows(spec: Spec, fX_kp, X_prev, ks):
     for a keypoint at step 0); ks [n_kp] the keypoint steps on the
     device."""
     e = funcs.residual(spec, fX_kp, ks)
-    Ld, ql = _limits(spec, X_prev)
+    Ld, ql = _limits(spec, X_prev, ks)
     live = (ks != 0)[:, None]
     ql = torch.where(live, ql, 0.0)
     Ld = torch.where(live, Ld, 0.0)
@@ -165,7 +181,7 @@ def _open_loop_rollout(spec: Spec, x0s, U):
         X[:, k + 1] = x
         As.append(A)
         Bs.append(Bk)
-    Ld, ql = _limits(spec, X[:, :-1])
+    Ld, ql = _limits(spec, X[:, :-1], torch.arange(H - 1, device=X.device))
     zero = torch.zeros_like(X[:, :1])
     return (X, torch.stack(As, 1), torch.stack(Bs, 1),
             torch.cat([zero, Ld], 1), torch.cat([zero, ql], 1))
@@ -196,7 +212,7 @@ def _solve_body(spec, Q, psi, x0s, u0s, kp_idx, nb_iter, early_stop,
     H, nu = spec.horizon, spec.nu
     Bsz = u0s.shape[0]
     dev = u0s.device
-    Rdiag = spec.Rt.to(u0s.dtype).repeat(H - 1)
+    Rdiag = _rdiag(spec, u0s.dtype)
     ks = torch.tensor(kp_idx, device=dev)
 
     def evaluate(u):
@@ -224,11 +240,11 @@ def _solve_body(spec, Q, psi, x0s, u0s, kp_idx, nb_iter, early_stop,
         g = (_mT(Jblk) @ (Q @ e[..., None]))[..., 0] + Lblk * ql
         rhs = (_mT(Su) @ g[..., None])[..., 0] - Rdiag * u
         if use_psi:
-            lhs = psi.T @ lhs @ psi + psi.T @ (Rdiag[:, None] * psi)
+            lhs = psi.T @ lhs @ psi + psi.T @ (Rdiag[..., :, None] * psi)
             dw, inf_ = torch.linalg.solve_ex(lhs, (psi.T @ rhs[..., None])[..., 0])
             du = (psi @ dw[..., None])[..., 0]
         else:
-            du, inf_ = torch.linalg.solve_ex(lhs + torch.diag(Rdiag), rhs)
+            du, inf_ = torch.linalg.solve_ex(lhs + torch.diag_embed(Rdiag), rhs)
         info = torch.where(active, inf_, info)
         c0 = _cost(Q, Rdiag, e, ql, Lblk, u)
 
@@ -261,51 +277,58 @@ def _solve_body(spec, Q, psi, x0s, u0s, kp_idx, nb_iter, early_stop,
 # rollout collapse to analytic formulas for the integrator dynamics
 # ---------------------------------------------------------------------------
 
-def _live(ks, H, lo):
-    """(ks [n, 1], js [1, H-1], the [n, H-1] mask of lo <= j < k) for the
-    row steps ks [n] (a tensor on the device): lo = 0 gives the controls
-    that reach x_k, lo = 1 the columns 1..k-1 the reference's capture
-    fills."""
+def _live(ks, H, lo, js=None):
+    """(ks [n, 1], js [1, n_js], the [n, n_js] mask of lo <= j < k) for the
+    row steps ks [n] (a tensor on the device) and the control steps js
+    (all H-1 when None): lo = 0 gives the controls that reach x_k, lo = 1
+    the columns 1..k-1 the reference's capture fills."""
     ks_a = ks[:, None]
-    js = torch.arange(H - 1, device=ks.device)[None, :]
+    if js is None:
+        js = torch.arange(H - 1, device=ks.device)
+    js = js[None, :]
     return ks_a, js, (js >= lo) & (js < ks_a)
 
 
-def _lti_su_rows(spec: Spec, ks, dtype):
-    """Closed-form Su over keypoint rows [n_kp nx, (H-1) nu], shared by
-    every lane: the zero-seeded recursion leaves column 0 empty and the
-    pre-update capture at keypoint k stores A^{k-1-j} B in column j for
-    1 <= j <= k-1. Single integrator: dt I; double integrator
-    A^p B = [[(1/2 + p) dt^2 I], [dt I]] with p = k-1-j."""
-    base = _base(spec)
+def _lti_su_rows(spec: Spec, ks, dtype, js=None):
+    """Closed-form Su over keypoint rows [n_kp nx, n_js nu], shared by
+    every lane ([B, n_kp nx, n_js nu] for a per-lane dt): the zero-seeded
+    recursion leaves column 0 empty and the pre-update capture at keypoint
+    k stores A^{k-1-j} B in column j for 1 <= j <= k-1. Single integrator:
+    dt I; double integrator A^p B = [[(1/2 + p) dt^2 I], [dt I]] with
+    p = k-1-j. js: the (global) control steps whose columns to emit, all
+    H-1 when None; a sequence-parallel rank passes its own slice."""
+    base = funcs.base_spec(spec)
     H, nx, nu, dof = spec.horizon, spec.nx, spec.nu, base.dof
     dev = ks.device
-    dt = base.dt.to(dtype)
+    dt = _dt(spec, dtype, 2)
     n_kp = ks.shape[0]
-    ks, js, live = _live(ks, H, 1)
+    ks, js, live = _live(ks, H, 1, js)
     if base.nb_deriv == 1:
         w = torch.where(live, dt, 0.0).to(dtype)
-        blocks = w[:, :, None, None] * torch.eye(nu, dtype=dtype, device=dev)
+        blocks = w[..., None, None] * torch.eye(nu, dtype=dtype, device=dev)
     else:
         p = (ks - 1 - js).to(dtype)
         top = torch.where(live, (0.5 + p) * dt * dt, 0.0)
         bot = torch.where(live, dt, 0.0)
         eye = torch.eye(dof, dtype=dtype, device=dev)
-        blocks = torch.cat([top[:, :, None, None] * eye,
-                            bot[:, :, None, None] * eye], dim=2)
-    n_js = blocks.shape[1]
-    return blocks.permute(0, 2, 1, 3).reshape(n_kp * nx, n_js * nu)
+        blocks = torch.cat([top[..., None, None] * eye,
+                            bot[..., None, None] * eye], dim=-2)
+    n_js = blocks.shape[-3]
+    return blocks.transpose(-3, -2).reshape(
+        blocks.shape[:-4] + (n_kp * nx, n_js * nu))
 
 
-def _lti_states_partial(spec: Spec, U, ks):
+def _lti_states_partial(spec: Spec, U, ks, js=None):
     """The control part of the states at the rows ks [n] [..., n, nx] from the
-    closed-form integrator solution, U [..., H-1, nu]. Single integrator:
-    dt sum_{j<k} u_j; double integrator: q part sum_{j<k} (1/2 + k-1-j)
-    dt^2 u_j, dq part dt sum_{j<k} u_j."""
-    base = _base(spec)
+    closed-form integrator solution, U [..., n_js, nu] the controls of the
+    steps js (all H-1 when None; a sequence-parallel rank passes its slice
+    and sums the partials over the ranks). Single integrator: dt sum_{j<k}
+    u_j; double integrator: q part sum_{j<k} (1/2 + k-1-j) dt^2 u_j, dq part
+    dt sum_{j<k} u_j. A per-lane dt needs U's lane axis first."""
+    base = funcs.base_spec(spec)
     dtype = U.dtype
-    dt = base.dt.to(dtype)
-    ks_a, js, live = _live(ks, spec.horizon, 0)
+    dt = _dt(spec, dtype, 2)
+    ks_a, js, live = _live(ks, spec.horizon, 0, js)
     live = live.to(dtype)
     if base.nb_deriv == 1:
         return dt * (live @ U)
@@ -317,10 +340,10 @@ def _lti_states_partial(spec: Spec, U, ks):
 def _lti_states_base(spec: Spec, x0s, ks):
     """The control-independent part of the states at the rows ks [n]
     [..., n, nx] from the initial states x0s [..., nx]."""
-    base = _base(spec)
+    base = funcs.base_spec(spec)
     if base.nb_deriv == 1:
         return x0s[..., None, :].expand(*x0s.shape[:-1], ks.shape[0], spec.nx)
-    dt = base.dt.to(x0s.dtype)
+    dt = _dt(spec, x0s.dtype, 2)
     dof = base.dof
     ks_a = ks[:, None].to(x0s.dtype)
     q0, dq0 = x0s[..., None, :dof], x0s[..., None, dof:]
@@ -350,7 +373,7 @@ def _time_su_rows(spec: Spec, ks, U, x0s):
     order: A_i = I + dt_i E with E^2 = 0, so the block is
     (I + (T_{k-1} - T_j) E) B_{j-1}; B_i's last column uses the *updated*
     velocity dq_{i+1}."""
-    base = _base(spec)
+    base = funcs.base_spec(spec)
     H, nx, nu, dof = spec.horizon, spec.nx, spec.nu, base.dof
     dtype, dev = U.dtype, U.device
     Bsz, n_kp = U.shape[0], ks.shape[0]
@@ -400,7 +423,7 @@ def _time_states_at(spec: Spec, x0s, U, ks):
     q0 + sum_{j<k} dt_j u_j[:dof]; second order dq_k = dq0 + sum dt_j ddq_j
     and q_k = q0 + T_k dq0 + sum_{j<k} (dt_j (T_k - T_{j+1}) + dt_j^2/2)
     ddq_j."""
-    base = _base(spec)
+    base = funcs.base_spec(spec)
     dtype = U.dtype
     dof = base.dof
     s = U[..., -1]
@@ -440,7 +463,7 @@ def _stable_gn_du(Su, Qh, Jblk, Lblk, Rd, rhs):
     ill-conditioning inside one SPD solve. -> (du [B, W], info [B])"""
     sR = torch.sqrt(Rd)
     V = torch.cat([Qh @ (Jblk @ Su), torch.sqrt(Lblk)[..., None] * Su],
-                  dim=-2) / sR
+                  dim=-2) / sR[..., None, :]
     rp = rhs / sR
     G = torch.eye(V.shape[-2], dtype=V.dtype, device=V.device) + V @ _mT(V)
     y, info = torch.linalg.solve_ex(G, (V @ rp[..., None])[..., 0])
@@ -459,16 +482,17 @@ def _solve_body_fast(spec, Q, psi, x0s, u0s, kp_idx, nb_iter, early_stop,
     H, nu = spec.horizon, spec.nu
     Bsz = u0s.shape[0]
     dtype, dev = u0s.dtype, u0s.device
-    time_opt = _base(spec).time_optimal
-    Rdiag = spec.Rt.to(dtype).repeat(H - 1)
+    time_opt = funcs.base_spec(spec).time_optimal
+    Rdiag = _rdiag(spec, dtype)
     # the keypoint rows and the rows before them, on the device once
     ks = torch.tensor(kp_idx, device=dev)
     ks_prev = (ks - 1).clamp(min=0)
-    # LTI kinds: Su is the same for every lane, and so is (Su psi)
+    # LTI kinds: Su is the same for every lane, and so is (Su psi), unless
+    # dt is one a lane
     Su_const = None if time_opt else _lti_su_rows(spec, ks, dtype)
     alphas = 2.0 ** -torch.arange(0, 11, dtype=dtype, device=dev)
     if use_psi:
-        psiRpsi = psi.T @ (Rdiag[:, None] * psi)
+        psiRpsi = psi.T @ (Rdiag[..., :, None] * psi)
         SuPsi = None if time_opt else Su_const @ psi
     else:
         # the square-root factor of the (constant, PSD) keypoint precision:

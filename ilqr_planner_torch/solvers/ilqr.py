@@ -21,9 +21,9 @@ Per iteration:
     them included) the fused dense quadratization + Riccati sweep
     `ops/cuda_kernels/riccati.py` (the CUDA kernel for CUDA tensors, its
     plain twin on the CPU), whose precisions are the same for every lane;
-    for every other kind, and for a per-scenario `prec`, the generic
-    recursion `_backward_core` in plain tensor ops with per-step A, B. The
-    route follows from the spec and its per-scenario leaves alone;
+    for every other kind, and for a per-scenario `prec`, `Rt` or `dt`, the
+    generic recursion `_backward_core` in plain tensor ops with per-step A,
+    B. The route follows from the spec and its per-scenario leaves alone;
   * the backtracking line search: trials at alpha = 1, 1/2, ..., 2^-10, each
     a closed-loop rollout; each lane adopts its FIRST trial with a strictly
     lower, non-NaN cost, and the 2^-10 trial when none passes; the walk stops
@@ -38,8 +38,14 @@ gains. The result's `ds` is scaled by the accepted alpha. `record=True`
 adds `progress`, each lane's {"cost", "alpha"} at each of its iterations,
 NaN beyond its last.
 
-Per-scenario keypoint leaves (mu, prec, pos_radius, orn_thresh) enter as
-spec leaves with a leading scenario axis (`parallel.mesh.batch_specs`).
+Per-scenario leaves (mu, prec, pos_radius, orn_thresh, kp_mask, Rt, dt,
+state_min, state_max, limit_weight, penalty) enter as spec leaves with a
+leading scenario axis (`parallel.mesh.batch_specs`). The riccati kernel
+takes per-lane targets, dead zones, keypoint masks (through the masked
+residual) and limits (through its [B, H, nx] limit terms); a per-lane
+`prec`, `Rt` (the top level's) or `dt` (subsystem 0's) takes
+`_backward_core`, since the kernel's precisions are shared and its Rt and
+dt are host scalars.
 
 The hooks of the JAX `solve`: `guard=True` is a per-lane mask (a lane
 whose line search floors out without a finite, strictly lower trial keeps
@@ -167,9 +173,10 @@ def _lane_prec(spec: Spec) -> bool:
 
 def _riccati_route(spec: Spec) -> bool:
     """The kinds the riccati kernel takes: first order, not time-optimal,
-    precisions the same for every lane."""
+    precisions, Rt and dt the same for every lane."""
     return (spec.nb_deriv == 1 and not spec.time_optimal
-            and not _lane_prec(spec))
+            and not _lane_prec(spec) and not funcs.lane_leaf(spec, "Rt")
+            and not funcs.lane_leaf(funcs.base_spec(spec), "dt"))
 
 
 def _limit_diag(spec: Spec, X):
@@ -183,9 +190,10 @@ def _limit_diag(spec: Spec, X):
     if not limited:
         zero = torch.zeros_like(X)
         return zero, zero
+    ks = torch.arange(spec.horizon, device=X.device)
     if len(limited) == 1:
-        return funcs.limit_terms(limited[0], X)
-    _, Lq, L2 = funcs._limit_triplet(spec, X)
+        return funcs.limit_terms(limited[0], X, ks)
+    _, Lq, L2 = funcs._limit_triplet(spec, X, ks)
     ld = torch.sqrt(L2)
     return ld, torch.where(ld > 0, Lq / torch.where(ld > 0, ld, 1.0), 0.0)
 
@@ -195,7 +203,7 @@ def _host_consts(spec: Spec):
     from the device once per solve; None for the kinds that route does not
     take."""
     if _riccati_route(spec):
-        return tuple(spec.Rt.tolist()), float(spec.dt)
+        return tuple(spec.Rt.tolist()), float(funcs.base_spec(spec).dt)
     return None
 
 
@@ -206,12 +214,13 @@ def _backward(spec: Spec, X, fX, U, As, Bs, Js, pscan: bool = False,
     it already (a solve reads it once, not once a sweep).
 
     The structured first-order kinds (nb_deriv 1, not time-optimal) with
-    precisions the same for every lane hand the dense per-step J, e, limit
-    terms (`_limit_diag`) and precisions to `riccati_backward`: the CUDA
-    kernel for CUDA tensors, its twin on the CPU. Every other kind, and a
-    per-scenario `prec`, quadratizes with `cost_gradients` and runs the
-    generic recursion `_backward_core`; `pscan` quadratizes so for every
-    kind and takes the parallel-prefix route of `_backward_core`.
+    precisions, Rt and dt the same for every lane hand the dense per-step
+    J, e, limit terms (`_limit_diag`) and precisions to `riccati_backward`:
+    the CUDA kernel for CUDA tensors, its twin on the CPU. Every other
+    kind, and a per-scenario `prec`, `Rt` or `dt`, quadratizes with
+    `cost_gradients` and runs the generic recursion `_backward_core`;
+    `pscan` quadratizes so for every kind and takes the parallel-prefix
+    route of `_backward_core`.
     """
     if pscan:
         return _backward_core(spec, As, Bs,
@@ -253,7 +262,7 @@ def _backward_core(spec: Spec, As, Bs, l_x, l_u, l_xx, lN_x, lN_xx,
     nu = spec.nu
     dtype, dev = l_x.dtype, l_x.device
     Hm1 = l_x.shape[1]
-    R = torch.diag(spec.Rt.to(dtype))
+    R = torch.diag_embed(spec.Rt.to(dtype))        # [nu, nu] or [B, nu, nu]
     eye_reg = _REG * torch.eye(nu, dtype=dtype, device=dev)
     const_ab = funcs.constant_AB(spec, dtype) if isinstance(As, tuple) else None
     if pscan:

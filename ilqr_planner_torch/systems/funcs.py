@@ -21,10 +21,13 @@ A sequential spec concatenates its subsystems' forward maps, Jacobian rows
 and residuals, takes a block-diagonal precision, sums the subsystems' limit
 and control-penalty costs, and follows subsystem 0's dynamics.
 
-Per-scenario keypoint leaves: `mu`, `prec`, `pos_radius`, `orn_thresh` and
-`kp_mask` may carry one more LEADING axis, the scenario batch B (the spec of
+Per-scenario leaves: `mu`, `prec`, `pos_radius`, `orn_thresh`, `kp_mask`,
+`Rt`, `state_min`, `state_max`, `limit_weight`, `penalty` and `dt` may carry
+one more LEADING axis, the scenario batch B (the spec of
 `parallel.mesh.batch_specs`); the states then carry B as their first axis
-too, and the step index broadcasts against the axes after it.
+too (or right after leading trial axes), and the step index broadcasts
+against the axes after it. A per-lane `dt` needs the states' lane axis
+first.
 """
 
 import torch
@@ -48,9 +51,15 @@ __all__ = [
 ]
 
 
-# the dimensions of each keypoint leaf without a scenario axis
+# the dimensions of each per-scenario leaf without a scenario axis
 _LEAF_DIMS = {"mu": 2, "prec": 3, "kp_mask": 1, "pos_radius": 1,
-              "orn_thresh": 2}
+              "orn_thresh": 2, "Rt": 1, "state_min": 1, "state_max": 1,
+              "limit_weight": 1, "penalty": 0, "dt": 0}
+
+
+def lane_leaf(spec: Spec, name: str) -> bool:
+    """True when leaf `name` carries a leading scenario axis."""
+    return getattr(spec, name).dim() > _LEAF_DIMS[name]
 
 
 def _at(spec: Spec, name: str, k):
@@ -60,6 +69,25 @@ def _at(spec: Spec, name: str, k):
     if leaf.dim() > _LEAF_DIMS[name]:
         return leaf[:, k]
     return leaf[k]
+
+
+def _lane(spec: Spec, name: str, k=None):
+    """Leaf `name` shaped to broadcast against stage tensors at step k: a
+    leaf with a leading scenario axis gets a step axis after it where k is
+    a step tensor, and a scalar leaf per lane a trailing axis ([B, 1] at an
+    int k, [B, 1, 1] at a step tensor); a shared leaf is returned as is."""
+    leaf = getattr(spec, name)
+    if leaf.dim() == _LEAF_DIMS[name]:
+        return leaf
+    if torch.is_tensor(k) and k.dim():
+        leaf = leaf[:, None]
+    return leaf[..., None] if _LEAF_DIMS[name] == 0 else leaf
+
+
+def base_spec(spec: Spec) -> Spec:
+    """The spec whose dynamics (and dt) a solve follows: subsystem 0 of a
+    sequential spec, else the spec itself."""
+    return spec.subs[0] if spec.kind == "sequential" else spec
 
 
 def _subs_of(spec: Spec):
@@ -254,34 +282,35 @@ def prec_at(spec: Spec, k):
 # joint limits
 # --------------------------------------------------------------------------
 
-def limit_terms(spec: Spec, x):
+def limit_terms(spec: Spec, x, k=None):
     """(L diagonal, violation q), each [..., nx]: L entries equal `penalty`
     where the (weighted) state exceeds its bounds; q = bound - x there,
-    else zero."""
-    over = x > spec.state_max
-    under = x < spec.state_min
-    active = (spec.limit_weight != 0) & (over | under)
+    else zero. k: the states' step index (an int or a step tensor), which
+    places per-lane limit leaves."""
+    smax, smin = _lane(spec, "state_max", k), _lane(spec, "state_min", k)
+    over = x > smax
+    under = x < smin
+    active = (_lane(spec, "limit_weight", k) != 0) & (over | under)
     zero = torch.zeros_like(x)
-    Ld = torch.where(active, spec.penalty.to(x.dtype), zero)
-    ql = torch.where(over, spec.state_max - x,
-                     torch.where(under, spec.state_min - x, zero))
+    Ld = torch.where(active, _lane(spec, "penalty", k).to(x.dtype), zero)
+    ql = torch.where(over, smax - x, torch.where(under, smin - x, zero))
     return Ld, torch.where(active, ql, zero)
 
 
-def _limit_triplet(spec: Spec, x):
+def _limit_triplet(spec: Spec, x, k=None):
     """(cost [...], L^T q [..., nx], diag(L^T L) [..., nx]), summed over
-    the subsystems of a sequential spec."""
+    the subsystems of a sequential spec; k as in `limit_terms`."""
     if spec.kind == "sequential":
         zero = torch.zeros_like(x)
         cost, Lq, L2 = zero.sum(-1), zero, zero
         for sub in _subs_of(spec):
-            c_s, Lq_s, L2_s = _limit_triplet(sub, x)
+            c_s, Lq_s, L2_s = _limit_triplet(sub, x, k)
             cost, Lq, L2 = cost + c_s, Lq + Lq_s, L2 + L2_s
         return cost, Lq, L2
     if not spec.limits_set:
         zero = torch.zeros_like(x)
         return zero.sum(-1), zero, zero
-    Ld, ql = limit_terms(spec, x)
+    Ld, ql = limit_terms(spec, x, k)
     return (Ld * ql * ql).sum(-1), Ld * ql, Ld * Ld
 
 
@@ -291,7 +320,7 @@ def ctrl_cost(spec: Spec, u, k):
     at its own keypoints."""
     if spec.kind == "sequential":
         return sum(ctrl_cost(sub, u, k) for sub in _subs_of(spec))
-    return _at(spec, "kp_mask", k) * (spec.Rt * u * u).sum(-1)
+    return _at(spec, "kp_mask", k) * (_lane(spec, "Rt", k) * u * u).sum(-1)
 
 
 # --------------------------------------------------------------------------
@@ -302,7 +331,7 @@ def stage_cost(spec: Spec, x, fx, u, k):
     """cost(x, u, k) = e^T P e + [kp] u^T R u + q_L^T L q_L."""
     e = residual(spec, fx, k)
     c = (e * _mv(prec_at(spec, k), e)).sum(-1) + ctrl_cost(spec, u, k)
-    lim_c, _, _ = _limit_triplet(spec, x)
+    lim_c, _, _ = _limit_triplet(spec, x, k)
     return c + lim_c
 
 
@@ -318,11 +347,11 @@ def cost_gradients(spec: Spec, x, fx, J, u, k):
     top-level R of a sequential spec)."""
     e = residual(spec, fx, k)
     P = prec_at(spec, k)
-    _, Lq, L2 = _limit_triplet(spec, x)
+    _, Lq, L2 = _limit_triplet(spec, x, k)
     Jt = J.transpose(-1, -2)
     l_x = -_mv(Jt, _mv(P, e)) - Lq
     l_xx = Jt @ P @ J + torch.diag_embed(L2)
-    l_u = spec.Rt * u
+    l_u = _lane(spec, "Rt", k) * u
     return l_x, l_u, l_xx
 
 
@@ -332,8 +361,9 @@ def cost_gradients(spec: Spec, x, fx, J, u, k):
 
 def constant_AB(spec: Spec, dtype):
     """(A [nx, nx], B [nx, nu]) for the state-independent integrators, or
-    None for the time-optimal kinds, whose B depends on (x, u). A sequential
-    spec follows subsystem 0."""
+    None for the time-optimal kinds, whose B depends on (x, u). A per-lane
+    dt [B] gives B [B, nx, nu] (and A [B, nx, nx] for the double
+    integrator). A sequential spec follows subsystem 0."""
     if spec.kind == "sequential":
         return constant_AB(_subs_of(spec)[0], dtype)
     if spec.time_optimal:
@@ -341,13 +371,15 @@ def constant_AB(spec: Spec, dtype):
     dof, nx, nu = spec.dof, spec.nx, spec.nu
     dev = spec.device
     dt = spec.dt.to(dtype)
+    lead = tuple(dt.shape)
+    dt = dt.reshape(lead + (1,) * (2 if lead else 0))
     eye = torch.eye(dof, dtype=dtype, device=dev)
     if spec.nb_deriv == 1:
         return (torch.eye(nx, dtype=dtype, device=dev),
                 dt * torch.eye(nx, nu, dtype=dtype, device=dev))
-    A = torch.eye(nx, dtype=dtype, device=dev)
-    A[:dof, dof:] = dt * eye
-    B = torch.cat([0.5 * dt * dt * eye, dt * eye], dim=0)
+    A = torch.eye(nx, dtype=dtype, device=dev).repeat(lead + (1, 1))
+    A[..., :dof, dof:] = dt * eye
+    B = torch.cat([0.5 * dt * dt * eye, dt * eye], dim=-2)
     return A, B
 
 
@@ -358,6 +390,8 @@ def _next_state(spec: Spec, x, u):
     dof = spec.dof
     if not spec.time_optimal:
         dt = spec.dt.to(x.dtype)
+        if dt.dim():                 # one a lane, the lanes x's first axis
+            dt = dt.reshape(dt.shape + (1,) * (x.dim() - 1))
         if spec.nb_deriv == 1:
             return x + dt * u
         q, dq = x[..., :dof], x[..., dof:]

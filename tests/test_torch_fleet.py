@@ -220,7 +220,14 @@ def test_out_of_scope_raises_not_implemented():
         make_fleet_solver(dataclasses.replace(spec, kind="posorn",
                                               robot=planar), 2)
     U0s = np.zeros((2, H - 1, 7))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        solve_batch(spec, {"dt": np.zeros(2)}, U0s, 2)
+    # a per-lane dt is not a fleet leaf: solve_batch takes the recursive
+    # route, each lane the single solve of its own dt
+    dts = np.array([float(spec.dt), 0.05])
+    lanes = solve_batch(spec, {"dt": dts}, U0s, 2)
+    for i, dt in enumerate(dts):
+        one = ilqr.solve(dataclasses.replace(
+            spec, dt=torch.tensor(dt, dtype=torch.float64)), U0s[i], 2)
+        np.testing.assert_allclose(lanes.cost[i].item(), one.cost.item(),
+                                   rtol=1e-10)
     with pytest.raises(ValueError, match="record=True"):
         solve_batch_staged(spec, {}, U0s, 2, record=True)

@@ -281,8 +281,10 @@ def test_unported_arguments_raise():
         ilqr.solve(spec, U0, 2, backward="tree")
     with pytest.raises(ValueError, match="U0 must be"):
         ilqr.solve(spec, U0[:-1], 2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        solve_batch(spec, {"Rt": np.zeros((1, 7))}, U0[None], 2,
-                    prefer_fleet=False)
+    # a per-lane Rt is solved: the lane is the single solve of its Rt
+    Rt = np.full((1, 7), 1e-3)
+    lane = solve_batch(spec, {"Rt": Rt}, U0[None], 2, prefer_fleet=False)
+    one = ilqr.solve(dataclasses.replace(spec, Rt=torch.as_tensor(Rt[0])), U0, 2)
+    np.testing.assert_allclose(lane.cost[0].item(), one.cost.item(), rtol=1e-10)
     with pytest.raises(ValueError, match="U0s must be"):
         solve_batch(spec, {}, U0, 2, prefer_fleet=False)
