@@ -63,7 +63,12 @@ float32:
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device and build: the card's name and power limit; the nvcc build of
      every kernel at every width the checks run (one library a kernel and
-     width), all started together, with each ptxas register/spill report;
+     width), all started together, with each ptxas register/spill report,
+     under a CompileMeter (`utils.compilemeter`: its nvcc runs are the
+     libraries absent before the build, nvcc_s within the wall, other_s >=
+     0); then a `calibration` line, the fixed probe's time
+     (`utils.calibprobe`) beside its nominal time and their ratio, printed
+     again after the last phase (no speed gate);
   2. each kernel against its plain PyTorch twin at its path's shapes,
      float64 (the correctness gate, 1e-9 relative) and float32, with
      CUDA-event timings and the least time the card could take (bytes or
@@ -78,7 +83,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
      planar (3, 2), segment_backward at H=600 with inner keypoints at 0
      and 299 on a ragged batch and at the planar n=3, and at al_h400's
      H=400, B=8192 with the folded bound in its streamed rows;
-  3. each path end to end: a first solve with every launch count set to 0
+  3. each path end to end (the flagship's first solve under a
+     CompileMeter, its `first_call_split`: no nvcc run, at least one solver
+     build, other_s >= 0; phase 2 has loaded every library, so it shows no
+     load): a first solve with every launch count set to 0
      just before it and read just after (each kernel of the path must have
      launched: once per backward sweep, and for the rollout once per
      line-search trial plus once for the solve's initial rollout; no
@@ -200,6 +208,7 @@ It needs one card, and the repository it sits in; without either it fails
 before printing any result.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -613,6 +622,7 @@ def phase_device_and_build():
                                                      rollout_time1,
                                                      segment_backward,
                                                      segment_backward_2nd)
+    from ilqr_planner_torch.utils.compilemeter import CompileMeter
 
     # every width the checks below run: one library a kernel and width
     widths = {**{f"segment_backward n={n}": (segment_backward, (n,)) for n in (7, 6, 3)},
@@ -622,16 +632,44 @@ def phase_device_and_build():
               **{f"riccati {n}x{nq}": (riccati, (n, nq))
                  for n, nq in ((7, 6), (7, 7), (7, 3), (6, 6), (6, 3), (7, 12),
                                (7, 13), (3, 2))}}
-    t0 = time.time()
-    with ThreadPoolExecutor(len(widths)) as ex:     # one nvcc per library
+    # the libraries already built: the build below compiles every other one
+    present = set(nvcc_build.BUILD_DIR.glob("*.so"))
+    meter = CompileMeter()
+    t0 = time.perf_counter()
+    with meter, ThreadPoolExecutor(len(widths)) as ex:  # one nvcc per library
         built = list(ex.map(lambda w: w[0].build(*w[1]), widths.values()))
-    build_s = time.time() - t0
+    build_s = time.perf_counter() - t0
+    absent = sum(lib not in present for lib, _ in built)
+    split = meter.report(wall_s=build_s)
     emit({"phase": "build", "nvidia_smi": smi, "build_s_all_parallel": build_s,
+          "libraries_absent_before": absent, "first_call_split": split,
           "libraries": {label: {
               "source": os.path.relpath(mod.SOURCE, REPO),
               "library": os.path.relpath(lib, REPO),
               "ptxas": nvcc_build.ptxas_summary(report)}
               for (label, (mod, _)), (lib, report) in zip(widths.items(), built)}})
+    if split["compiles"] != absent:
+        fail(f"build: the meter counted {split['compiles']} nvcc runs for "
+             f"{absent} libraries absent before the build")
+    if not split["nvcc_s"] <= build_s or split["other_s"] < 0:
+        fail(f"build: nvcc_s {split['nvcc_s']} over the wall {build_s} or "
+             f"other_s {split['other_s']} < 0")
+
+
+def phase_calibration(torch, when):
+    """The fixed calibration probe's time on this card and host, beside its
+    nominal time: speed factor = nominal / calib_s. No speed gate."""
+    from ilqr_planner_torch.utils.calibprobe import (CALIB_NOMINAL_S,
+                                                     calibration_probe)
+
+    calib_s = calibration_probe()
+    emit({"phase": "calibration", "when": when, "calib_s": calib_s,
+          "calib_nominal_s": CALIB_NOMINAL_S,
+          "speed_factor": CALIB_NOMINAL_S / calib_s,
+          "device": torch.cuda.get_device_name(0)})
+    if not (math.isfinite(calib_s) and calib_s > 0):
+        fail(f"calibration ({when}): calib_s {calib_s} is not finite and "
+             f"positive")
 
 
 def _kernel_vs_twin(torch, name, shapes, args_np, call, twin, twin_reps,
@@ -955,11 +993,12 @@ def _read_counts():
 
 
 def _drive(torch, spec, x0s, U0s, nb_iter, prefer_fleet=True, extra_ov=None,
-           record=False, repeats=None):
+           record=False, repeats=None, meter=None):
     """One solve with every count at 0 just before it, then `repeats`
     (default REPEATS) timed ones -> (result, counts, first_s, repeat times, the solve as a callable
     of the number of iterations). `extra_ov`: per-scenario keypoint
-    overrides beside the initial state."""
+    overrides beside the initial state; `meter`: a CompileMeter around the
+    first solve."""
     from ilqr_planner_torch.parallel import solve_batch
 
     x0s_t = torch.as_tensor(x0s, dtype=torch.float32, device="cuda")
@@ -970,7 +1009,7 @@ def _drive(torch, spec, x0s, U0s, nb_iter, prefer_fleet=True, extra_ov=None,
         return solve_batch(spec, ov, U0s_t, n, prefer_fleet=prefer_fleet,
                            record=record)
 
-    return _timed_runs(torch, run, repeats) + (run,)
+    return _timed_runs(torch, run, repeats, meter) + (run,)
 
 
 def _result_summary(res, batch, first_s, times, counts, shapes):
@@ -991,10 +1030,14 @@ def _result_summary(res, batch, first_s, times, counts, shapes):
 def phase_flagship(torch):
     from ilqr_planner_torch.parallel import mesh
     from ilqr_planner_torch.solvers.fleet import make_fleet_solver
+    from ilqr_planner_torch.utils.compilemeter import CompileMeter
 
     spec = flagship_spec(torch, torch.float32, "cuda")
     q0s, U0s = flagship_batch(B)
-    res, counts, first_s, times, run = _drive(torch, spec, q0s, U0s, NB_ITER)
+    meter = CompileMeter()
+    res, counts, first_s, times, run = _drive(torch, spec, q0s, U0s, NB_ITER,
+                                              meter=meter)
+    split = meter.report(wall_s=first_s)
     sweeps = int(res.iterations.max())
     # host cost of the solver memo: a hit fingerprints the spec, a miss
     # also builds the solver's constants
@@ -1012,10 +1055,16 @@ def phase_flagship(torch):
            "memo_hit_ms": 1e3 * statistics.median(fp_s),
            "memo_miss_extra_ms": 1e3 * statistics.median(build_s),
            "converged_frac": float(np.mean(res.cost.double().cpu().numpy() < 1e-4)),
-           "backward_sweeps": sweeps}
+           "backward_sweeps": sweeps, "first_call_split": split}
     emit(out)
     if not out["shapes_ok"] or not out["finite"]:
         fail("flagship: result has the wrong shape or non-finite values")
+    # phase 1 built every library: the first solve compiles nothing, and
+    # builds its solver (the memo misses)
+    if (split["compiles"] != 0 or split["solver_builds"] < 1
+            or split["other_s"] < 0):
+        fail(f"flagship: first-call split {split}: needs no nvcc run, at "
+             f"least one solver build and other_s >= 0")
     if not math.isfinite(out["median_cost"]):
         fail("flagship: median cost is not finite")
     if out["converged_frac"] < 0.95:
@@ -2689,22 +2738,24 @@ def _syncs(torch, fn):
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def _timed_solve(torch, fn):
-    """fn() with every count at 0 just before it -> (its result, wall s,
-    the counts just after)."""
+def _timed_solve(torch, fn, meter=None):
+    """fn() with every count at 0 just before it, inside `meter` (a
+    CompileMeter) when one is given -> (its result, wall s, the counts just
+    after)."""
     torch.cuda.synchronize()
     _reset_counts()
-    t0 = time.time()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.time() - t0, _read_counts()
+    t0 = time.perf_counter()
+    with meter or contextlib.nullcontext():
+        out = fn()
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _read_counts()
 
 
-def _timed_runs(torch, run, repeats=None):
-    """run() with every count at 0 just before it, then `repeats` (default
-    REPEATS) timed ones -> (the last result, the first run's counts, its
-    seconds, the repeats' seconds)."""
-    res, first_s, counts = _timed_solve(torch, run)
+def _timed_runs(torch, run, repeats=None, meter=None):
+    """run() with every count at 0 just before it (inside `meter` when one
+    is given), then `repeats` (default REPEATS) timed ones -> (the last
+    result, the first run's counts, its seconds, the repeats' seconds)."""
+    res, first_s, counts = _timed_solve(torch, run, meter)
     times = []
     for _ in range(REPEATS if repeats is None else repeats):
         res, t, _ = _timed_solve(torch, run)
@@ -3343,6 +3394,7 @@ def main():
         return out
 
     timed("build", phase_device_and_build)
+    timed("calibration", phase_calibration, torch, "after_build")
     kv = timed("kernels_vs_twins", phase_kernels_vs_twins, torch)
     kv.update(timed("kernels_vs_twins", phase_slice_kernels, torch))
     kv.update(timed("kernels_vs_twins", phase_al_kernel, torch))
@@ -3391,6 +3443,7 @@ def main():
     sp = timed("spmd", phase_spmd, torch)
     # the PyLQR drop-in API, float64, and riccati at its batch of one
     kv_b1, pylqr_launches = timed("pylqr", phase_pylqr, torch)
+    timed("calibration", phase_calibration, torch, "end")
 
     def row(name, src, replaces, k, launches, path, **extra):
         return {"name": name, "route": "cuda",

@@ -1,8 +1,8 @@
 """URDF -> KinematicChain, parsed on the host at problem-build time.
 
-PyTorch counterpart of the pure-Python half of
-the JAX package's `models/urdf.py` (no native parser): the URDF is read with
-the standard library XML parser, fixed joints are folded into the next
+PyTorch counterpart of the JAX package's `models/urdf.py`: the URDF is read
+with the native C++ extractor (`models/native.py`) when it is built, else
+with the standard library XML parser; fixed joints are folded into the next
 actuated joint's origin (or the tip transform), and the optional virtual tip
 frame (EulerZYX rotation plus translation) is composed into the tip.
 """
@@ -74,11 +74,22 @@ def parse_urdf(urdf: str, base_frame: str, tip_frame: str, is_path: bool = True)
 def chain_from_urdf(urdf, base_frame: str, tip_frame: str,
                     transform_rpy=(0.0, 0.0, 0.0),
                     transform_xyz=(0.0, 0.0, 0.0), is_path: bool = True,
-                    dtype=torch.float64, device=None) -> KinematicChain:
+                    dtype=torch.float64, device=None,
+                    prefer_native: bool = True) -> KinematicChain:
     """Build a KinematicChain from a URDF path (or its text, with
     `is_path=False`), folding fixed joints and the virtual tip frame
-    (rotation EulerZYX(rpy) = Rz(rpy[0]) Ry(rpy[1]) Rx(rpy[2]))."""
-    path = parse_urdf(str(urdf), base_frame, tip_frame, is_path=is_path)
+    (rotation EulerZYX(rpy) = Rz(rpy[0]) Ry(rpy[1]) Rx(rpy[2])). With
+    `prefer_native` the native extractor parses when it is built
+    (`native.available()`); both parsers feed the same folding."""
+    path = None
+    if prefer_native:
+        from ilqr_planner_torch.models import native
+
+        if native.available():
+            path = native.parse_urdf_native(str(urdf), base_frame, tip_frame,
+                                            is_path=is_path)
+    if path is None:
+        path = parse_urdf(str(urdf), base_frame, tip_frame, is_path=is_path)
 
     origin_rot, origin_pos, axes, prismatic = [], [], [], []
     R_acc = np.eye(3)

@@ -7,7 +7,8 @@ as -D defines), named by the hash of the source's content and the defines,
 in `ilqr_planner_torch/build/` (so an edited source builds anew and an
 unchanged one is built once); the
 ptxas report (registers, spills, shared memory per kernel) is kept beside
-it. Nothing here runs at import time.
+it. Nothing here runs at import time. An nvcc run and a library's load are
+spans of `utils.compilemeter` (`nvcc`, `load`).
 """
 
 import ctypes
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from ilqr_planner_torch.utils import compilemeter
 
 __all__ = ["CSRC", "build", "load", "ptxas_summary", "resident_blocks",
            "launch_geometry", "kernel_geometry", "SMEM_PER_BLOCK_MAX"]
@@ -63,7 +66,9 @@ def build(source: Path, defines=()):
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                "-Xptxas", "-v", *[f"-D{d}" for d in defines], "-o", str(tmp),
                str(source)]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        with compilemeter.span("nvcc"):
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  check=False)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source.name} "
                                f"({proc.returncode}):\n{proc.stderr}")
@@ -127,10 +132,11 @@ def load(source: Path, entries: dict, defines=()):
     lib = _loaded.get(key)
     if lib is None:
         path, _ = build(*key)
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in entries.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+        with compilemeter.span("load"):
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in entries.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
         _loaded[key] = lib
     return lib

@@ -41,6 +41,7 @@ import functools
 import torch
 
 from ilqr_planner_torch.ops.cuda_kernels import nvcc_build
+from ilqr_planner_torch.utils import compilemeter
 
 __all__ = ["riccati_backward", "riccati_backward_reference", "build",
            "LAUNCHES", "MAX_N", "MAX_NQ", "residual_widths", "launch_geometry",
@@ -238,7 +239,8 @@ def _check(J, e, ld, lq, u, prec):
 @functools.lru_cache(maxsize=32)
 def _params(dt, reg, Rt, dtype, dev):
     """(dt, reg, Rt) on the card, copied once per solver setting."""
-    return torch.tensor([dt, reg, *Rt], dtype=dtype, device=dev)
+    with compilemeter.span("solver_build"):
+        return torch.tensor([dt, reg, *Rt], dtype=dtype, device=dev)
 
 
 def riccati_backward(J, e, ld, lq, u, prec, Rt, dt, reg=1e-6):

@@ -22,6 +22,7 @@ import functools
 import torch
 
 from ilqr_planner_torch.ops.cuda_kernels import nvcc_build
+from ilqr_planner_torch.utils import compilemeter
 
 __all__ = ["segment_backward", "segment_backward_reference", "build",
            "LAUNCHES", "MAX_N", "launch_geometry", "kernel_geometry"]
@@ -187,8 +188,9 @@ def _launch_consts(Hm1, kp_steps, dt, reg, Rt, dtype, dev):
     slots = [-1] * Hm1
     for i, k in enumerate(kp_steps):
         slots[k] = i
-    return (torch.tensor(slots, dtype=torch.int32, device=dev),
-            torch.tensor([dt, reg, *Rt], dtype=dtype, device=dev))
+    with compilemeter.span("solver_build"):
+        return (torch.tensor(slots, dtype=torch.int32, device=dev),
+                torch.tensor([dt, reg, *Rt], dtype=dtype, device=dev))
 
 
 def segment_backward(P0, p0, L2, lx, U, gxx, kp_steps, dt, Rt, reg=1e-6):

@@ -32,6 +32,7 @@ import torch
 
 from ilqr_planner_torch.ops.cuda_kernels import nvcc_build
 from ilqr_planner_torch.ops.step_terms import gains_value, mirror_upper, q_terms
+from ilqr_planner_torch.utils import compilemeter
 
 __all__ = ["segment_backward_2nd", "segment_backward_time1",
            "segment_backward_2nd_reference", "build", "LAUNCHES", "MAX_DOF",
@@ -215,8 +216,9 @@ def _launch_consts(kind, Hm1, kp_steps, dt, reg, Rt, dtype, dev):
     slots = [-1] * Hm1
     for i, k in enumerate(kp_steps):
         slots[k] = i
-    return (torch.tensor(slots, dtype=torch.int32, device=dev),
-            _params(kind, dt, Rt, reg, dtype, dev))
+    with compilemeter.span("solver_build"):
+        return (torch.tensor(slots, dtype=torch.int32, device=dev),
+                _params(kind, dt, Rt, reg, dtype, dev))
 
 
 def _sweep(kind, P0, p0, L2, lx, U, gxx, kp_steps, dt, Rt, reg):

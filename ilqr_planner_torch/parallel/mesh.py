@@ -39,6 +39,7 @@ from ilqr_planner_torch.solvers.fleet import (FLEET_OVERRIDES, fleet_supported,
                                               make_fleet_solver_al)
 from ilqr_planner_torch.systems import funcs
 from ilqr_planner_torch.systems.spec import Spec, split_overrides
+from ilqr_planner_torch.utils import compilemeter
 from ilqr_planner_torch.utils.device import resolve_device
 
 __all__ = ["make_mesh", "solve_batch", "solve_batch_staged", "solve_batch_al",
@@ -101,15 +102,28 @@ class Mesh:
         return t
 
 
-def make_mesh(shape=None, axis_names=("dp",), device=None) -> Mesh:
+def make_mesh(shape=None, axis_names=("dp",), device=None,
+              devices=None) -> Mesh:
     """A mesh over the world's ranks, 1-D by default, on `device` (None:
-    CUDA, this process's card). Where a process group exists it is torch's
-    DeviceMesh (`init_device_mesh`); without one, a one-rank mesh. Raises
-    ValueError where the shape's product is not the world size."""
+    CUDA, this process's card), or on `devices`, one device a rank, of which
+    this rank takes devices[rank]. Where a process group exists it is
+    torch's DeviceMesh (`init_device_mesh`); without one, a one-rank mesh.
+    Raises ValueError where the shape's product or the number of `devices`
+    is not the world size, or where both `device` and `devices` are
+    given."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if devices is not None:
+        if device is not None:
+            raise ValueError("give make_mesh either device or devices, not "
+                             "both")
+        devices = list(devices)
+        if len(devices) != world:
+            raise ValueError(f"make_mesh got {len(devices)} devices; the "
+                             f"world has {world} ranks, one device a rank")
+        device = devices[dist.get_rank() if dist.is_initialized() else 0]
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    world = dist.get_world_size() if dist.is_initialized() else 1
     shape = (world,) if shape is None else tuple(int(n) for n in shape)
     axis_names = tuple(axis_names)
     if len(axis_names) != len(shape):
@@ -294,9 +308,10 @@ def solve_batch(spec: Spec, overrides: Dict[str, torch.Tensor], U0s,
            bool(early_stop), ov_names, bool(record))
     solver = _fleet_cache_get(key)
     if solver is None:
-        solver = make_fleet_solver(spec, int(nb_iter), bool(line_search),
-                                   bool(early_stop), overrides=ov_names,
-                                   record=bool(record))
+        with compilemeter.span("solver_build"):
+            solver = make_fleet_solver(spec, int(nb_iter), bool(line_search),
+                                       bool(early_stop), overrides=ov_names,
+                                       record=bool(record))
         _fleet_cache_put(key, solver)
     if ov_names:
         return solver(x0s, U0s, {k: overrides[k] for k in ov_names})
@@ -407,9 +422,11 @@ def solve_batch_al(spec: Spec, constraints, lam0, overrides, U0s,
                bool(early_stop), _digest((("A", cons.A), ("b", cons.b))))
         solver = _fleet_cache_get(key)
         if solver is None:
-            solver = make_fleet_solver_al(
-                spec, cons, int(nb_iter), int(lag_update_step), float(penalty),
-                float(scaling_factor), bool(line_search), bool(early_stop))
+            with compilemeter.span("solver_build"):
+                solver = make_fleet_solver_al(
+                    spec, cons, int(nb_iter), int(lag_update_step),
+                    float(penalty), float(scaling_factor), bool(line_search),
+                    bool(early_stop))
             _fleet_cache_put(key, solver)
         return solver(x0s, U0s, lam0)
     B, H = U0s.shape[0], spec.horizon

@@ -827,6 +827,15 @@ def _alpha_schedule(line_search: bool):
     return [2.0 ** -i for i in range(11)] if line_search else [1.0]
 
 
+def _check_auto(**knobs):
+    """Raise on a backward or rollout knob other than 'auto': the port has
+    one implementation of each (the kernel on the card, its twin on the
+    CPU)."""
+    for name, value in knobs.items():
+        if value != "auto":
+            raise ValueError(f"{name} must be 'auto' in the port, got {value!r}")
+
+
 def _pick_ls_mode(cc: _Consts, ls: str) -> bool:
     """The line-search knob -> use the affine family. 'auto': affine for
     the LTI kinds, re-rollouts for the time-optimal kinds; 'affine' on a
@@ -978,7 +987,7 @@ def _fx_traj(cc: _Consts, X):
 def make_fleet_solver(spec: Spec, nb_iter: int, line_search: bool = True,
                       early_stop: bool = True, overrides=(),
                       backward: str = "auto", ls: str = "auto",
-                      record: bool = False):
+                      record: bool = False, rollout: str = "auto"):
     """Build a lane-major fleet solve: (x0s [B, n], U0s [B, H-1, nu][, ov])
     -> ILQRResult with a leading scenario axis, on the spec's device.
 
@@ -989,13 +998,13 @@ def make_fleet_solver(spec: Spec, nb_iter: int, line_search: bool = True,
     None keeping that subsystem's constants), bound to lanes once a solve.
     record: `progress` holds each lane's {"cost", "alpha"} [B, nb_iter],
     written at the lane's own iteration index, NaN beyond its last.
-    backward: 'auto' only (the CUDA kernels on the card, their twins on the
-    CPU). ls: 'auto' (the affine trials on the LTI kinds, re-rollouts on the
-    time-optimal kinds), 'affine' or 'scan' to force ('affine' on a
-    time-optimal kind raises).
+    backward, rollout: 'auto' only (the CUDA kernels on the card, their
+    twins on the CPU; the time-optimal rollout kernel on the first-order
+    time-optimal kind's re-rollouts). ls: 'auto' (the affine trials on the
+    LTI kinds, re-rollouts on the time-optimal kinds), 'affine' or 'scan'
+    to force ('affine' on a time-optimal kind raises).
     """
-    if backward != "auto":
-        raise ValueError(f"backward must be 'auto' in the port, got {backward!r}")
+    _check_auto(backward=backward, rollout=rollout)
     cc = _Consts(spec, overrides)
     use_affine = _pick_ls_mode(cc, ls)
     run_trials = _run_trials_affine if use_affine else _run_trials
@@ -1087,7 +1096,8 @@ def _al_plan(constraints: Constraints, n: int, np_dtype) -> dict:
 def make_fleet_solver_al(spec: Spec, constraints: Constraints, nb_iter: int,
                          lag_update_step: int, penalty: float,
                          scaling_factor: float, line_search: bool = True,
-                         early_stop: bool = True):
+                         early_stop: bool = True, ls: str = "auto",
+                         backward: str = "auto"):
     """Build a lane-major AL-iLQR solve: (x0s [B, n], U0s [B, H-1, nu],
     lam0 [nc] | [H-1, nc] | [B, H-1, nc]) -> ALILQRResult with a leading
     scenario axis, on the spec's device. Per lane it is `al_ilqr.solve`:
@@ -1096,11 +1106,11 @@ def make_fleet_solver_al(spec: Spec, constraints: Constraints, nb_iter: int,
     penalty (x scaling_factor) and then lam = max(0, lam + penalty g) update
     every `lag_update_step` iterations, and a lane stops early at
     alpha sqrt(sum ||du||) < 1e-3 (no cost condition). The constraints
-    A [H-1, nc, n+m], b [H-1, nc] are shared by every lane. The line search
-    is `make_fleet_solver`'s default: the affine trials on the LTI kinds,
-    re-rollouts on the time-optimal kinds."""
+    A [H-1, nc, n+m], b [H-1, nc] are shared by every lane. ls and
+    backward as in `make_fleet_solver`."""
+    _check_auto(backward=backward)
     cc = _Consts(spec)
-    run_trials = _run_trials if cc.time else _run_trials_affine
+    run_trials = _run_trials_affine if _pick_ls_mode(cc, ls) else _run_trials
     n, m, H = cc.n, cc.m, cc.H
     a_sched = _alpha_schedule(line_search)
     plan = _al_plan(constraints, n, np.dtype(str(cc.dtype).removeprefix("torch.")))

@@ -285,6 +285,26 @@ def test_make_mesh_and_distributed_at_one_rank(monkeypatch):
         assert not dist.is_initialized()
 
 
+def test_make_mesh_devices_at_one_rank():
+    """`devices=`, one device a rank: at one rank the mesh of
+    make_mesh(device="cpu"), as the JAX make_mesh over one device; a list
+    that is not the world size, or `device` beside it, raises."""
+    import jax
+
+    from ilqr_planner_tpu.parallel import make_mesh as jmake_mesh
+
+    for shape, names in ((None, ("dp",)), ((1, 1), ("dp", "sp"))):
+        got = make_mesh(shape, names, devices=["cpu"])
+        assert got == make_mesh(shape, names, device="cpu")
+        ref = jmake_mesh(shape, names, devices=np.array(jax.devices()[:1]))
+        assert got.shape == dict(ref.shape)
+    assert make_mesh(devices=[torch.device("cpu")]).device == torch.device("cpu")
+    with pytest.raises(ValueError, match="got 2 devices; the world has 1"):
+        make_mesh(devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="either device or devices"):
+        make_mesh(device="cpu", devices=["cpu"])
+
+
 def test_size_errors():
     """B not a multiple of the chunk or of the shard axis, H-1 not a
     multiple of the sp axis, and a time-optimal spec in solve_batch_sp
@@ -415,12 +435,20 @@ def test_sp_and_fleet_step_at_one_rank_match_jax(jax_problems):
     assert int(out[4]) == int(ref[4])
 
 
+# parameters of the JAX package's public callables that the port does not
+# take, each with its reason
+EXEMPT_PARAMETERS = {
+    "unroll": "lax.scan's unroll factor, which exists only under XLA",
+}
+
+
 def test_package_surface_matches_jax():
     """`import ilqr_planner_torch` exposes the JAX package's subpackages,
-    compat and __version__, and every public name of every JAX module is
-    in its port counterpart, but for the two utils modules still to port
-    (`compilemeter`, `calibprobe`). The Pallas kernels' modules have CUDA
-    counterparts of other names (`ops/cuda_kernels`)."""
+    compat and __version__; every JAX module has its port counterpart,
+    every public name of it is there, and every parameter of every public
+    callable is a parameter of the port's, but those in EXEMPT_PARAMETERS.
+    The Pallas kernels' modules have CUDA counterparts of other names
+    (`ops/cuda_kernels`)."""
     import importlib
     import inspect
     import pkgutil
@@ -432,7 +460,7 @@ def test_package_surface_matches_jax():
     for name in ("models", "ops", "parallel", "solvers", "systems", "utils",
                  "compat", "__version__"):
         assert hasattr(ilqr_planner_torch, name), name
-    missing, absent = [], []
+    missing, absent, params = [], [], []
     for info in pkgutil.walk_packages(ilqr_planner_tpu.__path__,
                                       "ilqr_planner_tpu."):
         if info.name.startswith("ilqr_planner_tpu.ops.pallas_kernels"):
@@ -449,8 +477,17 @@ def test_package_surface_matches_jax():
             if not n.startswith("_") and not inspect.ismodule(v)
             and getattr(v, "__module__", jmod.__name__) in (jmod.__name__, None)]
         missing += [f"{info.name}.{n}" for n in names if not hasattr(tmod, n)]
+        for n in names:
+            jv, tv = getattr(jmod, n), getattr(tmod, n, None)
+            if tv is None or not callable(jv):
+                continue
+            theirs = inspect.signature(tv).parameters
+            params += [f"{info.name}.{n}({p}=)"
+                       for p in inspect.signature(jv).parameters
+                       if p not in theirs and p not in EXEMPT_PARAMETERS]
     assert missing == []
-    assert sorted(absent) == ["utils.calibprobe", "utils.compilemeter"]
+    assert absent == []
+    assert params == []
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:

@@ -6,7 +6,8 @@ on the CPU.
 Checkpoints and files cross between the packages: each reads what the
 other wrote (dicts, lists and tuples of arrays; a structure mismatch
 raises). `jac_pseudo_inverse` at 1e-12; the native parser against the
-port's Python parser bit for bit.
+port's Python parser bit for bit, and `chain_from_urdf(prefer_native=)`
+against the JAX package's bit for bit.
 """
 
 import collections
@@ -265,3 +266,41 @@ def test_native_parser_errors(native_lib):
         native.parse_urdf_native(str(PANDA_URDF), "panda_link0", "no_such_link")
     with pytest.raises(ValueError, match="Unable to read URDF"):
         native.parse_urdf_native("/nonexistent/robot.urdf", "a", "b")
+
+
+@pytest.mark.parametrize("is_path", [True, False], ids=["path", "text"])
+def test_chain_from_urdf_prefer_native_matches_jax(native_lib, monkeypatch,
+                                                   is_path):
+    """chain_from_urdf(prefer_native=) parses with the native extractor
+    when it is built and with the Python parser otherwise, as the JAX
+    package's does: the Panda chain through both parsers and both packages
+    is the same, bit for bit."""
+    from ilqr_planner_tpu.models import chain_from_urdf as jchain_from_urdf
+    from ilqr_planner_tpu.models import native as jnative
+
+    assert jnative.available()
+    urdf = str(PANDA_URDF) if is_path else PANDA_URDF.read_text()
+    calls = []
+    parse = native.parse_urdf_native
+    monkeypatch.setattr(native, "parse_urdf_native",
+                        lambda *a, **k: calls.append(a) or parse(*a, **k))
+    chains = {}
+    for prefer in (True, False):
+        chains[prefer] = chain_from_urdf(urdf, "panda_link0", "panda_tip",
+                                         is_path=is_path, device="cpu",
+                                         prefer_native=prefer)
+        assert len(calls) == 1
+        ref = jchain_from_urdf(urdf, "panda_link0", "panda_tip",
+                               is_path=is_path, dtype=np.float64,
+                               prefer_native=prefer)
+        for f in dataclasses.fields(ref):
+            np.testing.assert_array_equal(
+                getattr(chains[prefer], f.name).numpy(),
+                np.asarray(getattr(ref, f.name)), err_msg=f.name)
+    for f in dataclasses.fields(chains[True]):
+        assert torch.equal(getattr(chains[True], f.name),
+                           getattr(chains[False], f.name)), f.name
+    monkeypatch.setattr(native, "available", lambda: False)
+    chain_from_urdf(urdf, "panda_link0", "panda_tip", is_path=is_path,
+                    device="cpu")
+    assert len(calls) == 1
