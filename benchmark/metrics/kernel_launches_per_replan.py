@@ -1,0 +1,6 @@
+"""Kernel launches in one whole traced replan call (profiler kernel events)."""
+
+
+def read(ctx):
+    trace = ctx.get("trace")
+    return float(len(trace.kernels())) if trace else None
