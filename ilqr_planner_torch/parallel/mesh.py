@@ -245,11 +245,16 @@ def _fleet_cache_put(key, solver):
         _fleet_cache.popitem(last=False)
 
 
+def _host_array(t):
+    return torch.as_tensor(t).detach().cpu().numpy()
+
+
 def _digest(named):
-    """sha1 of (name, tensor) pairs: each one's dtype, shape and bytes."""
+    """sha1 of (name, tensor) pairs: each one's dtype, shape and bytes
+    (each tensor's copy to the host one host sync)."""
     h = hashlib.sha1()
     for name, t in named:
-        a = torch.as_tensor(t).detach().cpu().numpy()
+        a = compilemeter.host_read(t, _host_array)
         h.update(name.encode())
         h.update(str(a.dtype).encode())
         h.update(str(a.shape).encode())
@@ -276,6 +281,7 @@ def _fleet_dispatch(spec: Spec, overrides) -> tuple:
     return fleet_supported(spec), ov_names
 
 
+@compilemeter.spanned("dispatch")
 def solve_batch(spec: Spec, overrides: Dict[str, torch.Tensor], U0s,
                 nb_iter: int, line_search: bool = True, early_stop: bool = True,
                 prefer_fleet: bool = True, record: bool = False):
@@ -389,6 +395,7 @@ def _as_constraints(spec: Spec, constraints) -> al_ilqr.Constraints:
         for a in (constraints.A, constraints.b)))
 
 
+@compilemeter.spanned("dispatch")
 def solve_batch_al(spec: Spec, constraints, lam0, overrides, U0s,
                    nb_iter: int, lag_update_step: int, penalty: float,
                    scaling_factor: float, line_search: bool = True,

@@ -41,6 +41,7 @@ from ilqr_planner_torch.systems import funcs
 from ilqr_planner_torch.systems.funcs import _mv
 from ilqr_planner_torch.systems.spec import Spec
 from ilqr_planner_torch.utils.callbacks import emit_progress
+from ilqr_planner_torch.utils.compilemeter import host_read
 from ilqr_planner_torch.utils.device import resolve_device
 
 __all__ = ["Constraints", "ALILQRResult", "solve"]
@@ -181,7 +182,7 @@ def _solve_impl(spec: Spec, cons: Constraints, lam0, x0s, U0s, nb_iter: int,
 
     while True:
         active = ~done & (it < nb_iter)
-        if not bool(active.any()):
+        if not host_read(active.any()):
             break
         fX, Js = funcs.fx_jac(spec, X)
         As, Bs = ilqr._per_step_AB(spec, X, U)

@@ -63,6 +63,7 @@ import torch
 from ilqr_planner_torch.systems import funcs
 from ilqr_planner_torch.systems.spec import Spec
 from ilqr_planner_torch.utils.callbacks import emit_progress
+from ilqr_planner_torch.utils.compilemeter import host_read
 
 __all__ = ["BatchResult", "solve", "solve_cp", "sparse_Q", "sparse_mu",
            "fast_supported"]
@@ -230,7 +231,7 @@ def _solve_body(spec, Q, psi, x0s, u0s, kp_idx, nb_iter, early_stop,
     info = torch.zeros(Bsz, dtype=torch.int32, device=dev)
     while True:
         active = (it < nb_iter) & ~done
-        if not bool(active.any()):
+        if not host_read(active.any()):
             break
         As, Bs, J, e, ql, Lblk = evaluate(u)
         Su = _build_su(spec, As, Bs, kp_idx)
@@ -253,7 +254,7 @@ def _solve_body(spec, Q, psi, x0s, u0s, kp_idx, nb_iter, early_stop,
         pending = active.clone()
         alpha = torch.ones_like(c0)
         u_new = u
-        while bool(pending.any()):
+        while host_read(pending.any()):
             utmp = u + alpha[:, None] * du
             _, _, _, et, qlt, Lt = evaluate(utmp)
             ok = (_cost(Q, Rdiag, et, qlt, Lt, utmp) < c0) | (alpha < 1e-3)

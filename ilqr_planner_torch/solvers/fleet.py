@@ -41,6 +41,10 @@ penalty update masked per lane. Uniform constraints whose rows each touch
 one state coordinate and no control (axis-aligned state bounds) fold
 exactly into the streamed stage diagonal and gradient, so such a solve runs
 the unconstrained kernels.
+
+The host's work is in spans (`utils/compilemeter.py`): `fleet.iteration`,
+`fleet.backward`, `fleet.line_search`, `fleet.rollout`, `stage_terms`; each
+host read of a loop or trial guard is a `sync` (`host_read`).
 """
 import math
 
@@ -56,6 +60,7 @@ from ilqr_planner_torch.ops.step_terms import al_terms, gains_value, q_terms
 from ilqr_planner_torch.solvers.al_ilqr import ALILQRResult, Constraints
 from ilqr_planner_torch.solvers.ilqr import ILQRResult
 from ilqr_planner_torch.systems.spec import Spec, split_overrides
+from ilqr_planner_torch.utils.compilemeter import host_read, span, spanned
 
 __all__ = ["make_fleet_solver", "make_fleet_solver_al", "fleet_supported",
            "FLEET_OVERRIDES", "TRIALS", "GENERIC_SWEEPS"]
@@ -580,6 +585,7 @@ def _kp_jac(sc: _SubC, fkd):
     return J
 
 
+@spanned("stage_terms")
 def _kp_terms_at(cc: _Consts, k: int, x, want_grads: bool, kpa=None):
     """(cost [B], gx [n, B], Gxx [n, n, B]) summed over the keypoints of
     every system at step k: cost = e^T P e, gx = J^T P e, Gxx = J^T P J.
@@ -628,6 +634,7 @@ def _limit_terms(sc: _SubC, X):
     return Ld, torch.where(active, ql, zero)
 
 
+@spanned("stage_terms")
 def _limit_arrays(cc: _Consts, X):
     """Limit gradient and diagonal Hessian over [H, n, B]: (Lq, L2)."""
     Lq = torch.zeros_like(X)
@@ -640,6 +647,7 @@ def _limit_arrays(cc: _Consts, X):
     return Lq, L2
 
 
+@spanned("stage_terms")
 def _limit_cost_full(cc: _Consts, X):
     """Total limit-penalty cost of a trajectory [H, n, B] -> [B]."""
     cost = torch.zeros_like(X[0, 0])
@@ -654,6 +662,7 @@ def _limit_cost_full(cc: _Consts, X):
 # closed-loop rollout and the static keypoint-step costs
 # ---------------------------------------------------------------------------
 
+@spanned("stage_terms")
 def _static_step_costs(cc: _Consts, X, U, cost, kpa=None):
     """Add the keypoint-residual and control-penalty costs at the keypoint
     steps to `cost` ([H, n, B], [H-1, m, B] -> [B]). The control penalty
@@ -669,6 +678,7 @@ def _static_step_costs(cc: _Consts, X, U, cost, kpa=None):
     return cost
 
 
+@spanned("fleet.rollout")
 def _rollout(cc: _Consts, alpha, Ks, ds, Xref, Uref, x0, kpa=None):
     """Closed-loop rollout u = uo + K (x - xo) + alpha d over all lanes ->
     (X [H, n, B], U [H-1, m, B], cost [B], sum_k ||du_k|| [B]).
@@ -765,6 +775,7 @@ def _generic_sweep(cc: _Consts, P, p, L2, lx, U, gxx, inner, X, al):
     return Ks, ds
 
 
+@spanned("fleet.backward")
 def _backward(cc: _Consts, X, U, kpa=None, al=None):
     """Full backward sweep -> (Ks [H-1, m, n, B], ds [H-1, m, B]).
 
@@ -886,6 +897,7 @@ def _affine_family(cc: _Consts, Ks, ds, Xref, Uref, x0):
             (dub * dud).sum(1), (dud * dud).sum(1))
 
 
+@spanned("fleet.line_search")
 def _run_trials_affine(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0,
                        inactive, kpa=None):
     """Backtracking over alpha = 1, 1/2, ..., 2^-10 on the affine family:
@@ -916,7 +928,7 @@ def _run_trials_affine(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0,
     alpha = torch.ones_like(cost0)
     n_trials = 0
     for a in a_sched:
-        if bool(accepted.all()):
+        if host_read(accepted.all()):
             break
         ct, dut = trial(a)
         n_trials += 1
@@ -931,6 +943,7 @@ def _run_trials_affine(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0,
     return Xn, Un, cost, du_acc, alpha, n_trials
 
 
+@spanned("fleet.line_search")
 def _run_trials(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0, inactive,
                 kpa=None):
     """Backtracking with one closed-loop rollout (`_rollout`) a trial, same
@@ -942,7 +955,7 @@ def _run_trials(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0, inactive,
     best = (X, U, cost0, torch.zeros_like(cost0), torch.ones_like(cost0))
     n_trials = 0
     for a in a_sched:
-        if bool(accepted.all()):
+        if host_read(accepted.all()):
             break
         Xt, Ut, ct, dut = _rollout(cc, a, Ks, ds, X, U, x0, kpa)
         n_trials += 1
@@ -958,6 +971,7 @@ def _run_trials(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0, inactive,
 # the solve
 # ---------------------------------------------------------------------------
 
+@spanned("stage_terms")
 def _fx_traj(cc: _Consts, X):
     """fX [B, H, nt] of a trajectory: the horizon flattens into the lane
     axis so the FK walk runs once over H*B lanes."""
@@ -1030,30 +1044,31 @@ def make_fleet_solver(spec: Spec, nb_iter: int, line_search: bool = True,
             rec_alpha = rec_cost.clone()
             rows = torch.arange(nb_iter, device=cc.device)[:, None]
         while True:
-            active = ~done & (it < nb_iter)
-            if not bool(active.any()):
-                break
-            Ks_n, ds_n = _backward(cc, X, U, kpa)
-            Xn, Un, costn, du_acc, alpha_n, n_trials = run_trials(
-                cc, a_sched, X, U, cost, Ks_n, ds_n, x0, ~active, kpa)
-            TRIALS += n_trials
-            new_done = done
-            if early_stop:
-                new_done = done | ((alpha_n * torch.sqrt(du_acc) < 1e-3)
-                                   & (costn < 1e-3))
-            if record:
-                # each active lane's row at its own iteration index
-                row = (rows == it[None]) & active[None]
-                rec_cost = torch.where(row, costn[None], rec_cost)
-                rec_alpha = torch.where(row, alpha_n[None], rec_alpha)
-            X = torch.where(active, Xn, X)
-            U = torch.where(active, Un, U)
-            cost = torch.where(active, costn, cost)
-            Ks = torch.where(active, Ks_n, Ks)
-            ds = torch.where(active, ds_n, ds)
-            it = torch.where(active, it + 1, it)
-            done = torch.where(active, new_done, done)
-            alpha = torch.where(active, alpha_n, alpha)
+            with span("fleet.iteration"):
+                active = ~done & (it < nb_iter)
+                if not host_read(active.any()):
+                    break
+                Ks_n, ds_n = _backward(cc, X, U, kpa)
+                Xn, Un, costn, du_acc, alpha_n, n_trials = run_trials(
+                    cc, a_sched, X, U, cost, Ks_n, ds_n, x0, ~active, kpa)
+                TRIALS += n_trials
+                new_done = done
+                if early_stop:
+                    new_done = done | ((alpha_n * torch.sqrt(du_acc) < 1e-3)
+                                       & (costn < 1e-3))
+                if record:
+                    # each active lane's row at its own iteration index
+                    row = (rows == it[None]) & active[None]
+                    rec_cost = torch.where(row, costn[None], rec_cost)
+                    rec_alpha = torch.where(row, alpha_n[None], rec_alpha)
+                X = torch.where(active, Xn, X)
+                U = torch.where(active, Un, U)
+                cost = torch.where(active, costn, cost)
+                Ks = torch.where(active, Ks_n, Ks)
+                ds = torch.where(active, ds_n, ds)
+                it = torch.where(active, it + 1, it)
+                done = torch.where(active, new_done, done)
+                alpha = torch.where(active, alpha_n, alpha)
         return ILQRResult(
             X=X.permute(2, 0, 1),
             fX=_fx_traj(cc, X),
@@ -1157,30 +1172,31 @@ def make_fleet_solver_al(spec: Spec, constraints: Constraints, nb_iter: int,
         it = torch.zeros(B, dtype=torch.int32, device=cc.device)
         done = torch.zeros(B, dtype=torch.bool, device=cc.device)
         while True:
-            active = ~done & (it < nb_iter)
-            if not bool(active.any()):
-                break
-            Ks, ds = _backward(cc, X, U, None, dict(al_static, Is=Is, g=g, lam=lam))
-            Xn, Un, costn, du_acc, alpha, n_trials = run_trials(
-                cc, a_sched, X, U, cost, Ks, ds, x0, ~active)
-            TRIALS += n_trials
-            Isn, gn = active_sets(Xn, Un, lam, pen)
-            update = ((it + 1) % lag_update_step) == 0
-            pen_n = torch.where(update, pen * scaling_factor, pen)
-            lam_n = torch.where(update, torch.clamp_min(lam + pen_n * gn, 0.0),
-                                lam)
-            new_done = done
-            if early_stop:
-                new_done = done | (alpha * torch.sqrt(du_acc) < 1e-3)
-            X = torch.where(active, Xn, X)
-            U = torch.where(active, Un, U)
-            Is = torch.where(active, Isn, Is)
-            g = torch.where(active, gn, g)
-            cost = torch.where(active, costn, cost)
-            lam = torch.where(active, lam_n, lam)
-            pen = torch.where(active, pen_n, pen)
-            it = torch.where(active, it + 1, it)
-            done = torch.where(active, new_done, done)
+            with span("fleet.iteration"):
+                active = ~done & (it < nb_iter)
+                if not host_read(active.any()):
+                    break
+                Ks, ds = _backward(cc, X, U, None, dict(al_static, Is=Is, g=g, lam=lam))
+                Xn, Un, costn, du_acc, alpha, n_trials = run_trials(
+                    cc, a_sched, X, U, cost, Ks, ds, x0, ~active)
+                TRIALS += n_trials
+                Isn, gn = active_sets(Xn, Un, lam, pen)
+                update = ((it + 1) % lag_update_step) == 0
+                pen_n = torch.where(update, pen * scaling_factor, pen)
+                lam_n = torch.where(update, torch.clamp_min(lam + pen_n * gn, 0.0),
+                                    lam)
+                new_done = done
+                if early_stop:
+                    new_done = done | (alpha * torch.sqrt(du_acc) < 1e-3)
+                X = torch.where(active, Xn, X)
+                U = torch.where(active, Un, U)
+                Is = torch.where(active, Isn, Is)
+                g = torch.where(active, gn, g)
+                cost = torch.where(active, costn, cost)
+                lam = torch.where(active, lam_n, lam)
+                pen = torch.where(active, pen_n, pen)
+                it = torch.where(active, it + 1, it)
+                done = torch.where(active, new_done, done)
         return ALILQRResult(X=X.permute(2, 0, 1), fX=_fx_traj(cc, X),
                             U=U.permute(2, 0, 1),
                             multipliers=lam.permute(2, 0, 1), cost=cost,

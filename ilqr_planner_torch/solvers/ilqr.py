@@ -69,6 +69,7 @@ from ilqr_planner_torch.systems import funcs
 from ilqr_planner_torch.systems.funcs import _mv
 from ilqr_planner_torch.systems.spec import Spec
 from ilqr_planner_torch.utils.callbacks import emit_progress
+from ilqr_planner_torch.utils.compilemeter import host_read
 
 __all__ = ["ILQRResult", "solve", "rollout", "static_kp_steps", "TRIALS"]
 
@@ -349,7 +350,7 @@ def _line_search(spec: Spec, a_sched, Ks, ds, X, U, cost, x0s, active):
     accepted = ~active
     best = (X, U, cost, torch.zeros_like(cost), torch.ones_like(cost))
     for a in a_sched:
-        if bool(accepted.all()):
+        if host_read(accepted.all()):
             break
         Xt, Ut, ct, dut = _trial(spec, a, Ks, ds, X, U, x0s)
         TRIALS += 1
@@ -390,7 +391,7 @@ def _solve_impl(spec: Spec, x0s, U0s, nb_iter: int, line_search: bool,
 
     while True:
         active = ~done & (it < nb_iter)
-        if not bool(active.any()):
+        if not host_read(active.any()):
             break
         fX, Js = funcs.fx_jac(spec, X)
         As, Bs = _per_step_AB(spec, X, U)
