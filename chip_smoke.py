@@ -82,14 +82,21 @@ Phases (each prints one JSON line; any failure exits non-zero):
      at the sequential specs' (7, 12) H=600 and (7, 13) H=500 and the
      planar (3, 2), segment_backward at H=600 with inner keypoints at 0
      and 299 on a ragged batch and at the planar n=3, and at al_h400's
-     H=400, B=8192 with the folded bound in its streamed rows;
+     H=400, B=8192 with the folded bound in its streamed rows; the
+     limit-penalty kernel at the bulk cells' shapes (posorn [100, 7,
+     294912]: the cost of an affine trial read from the family [100, 2, 7,
+     294912], the cost and the arrays of a trajectory; timeopt [100, 8,
+     131072]: the cost and the arrays), its arrays bit for bit and its cost
+     within H n nsub eps of the twin's on every lane, in both types;
   3. each path end to end (the flagship's first solve under a
      CompileMeter, its `first_call_split`: no nvcc run, at least one solver
      build, other_s >= 0; phase 2 has loaded every library, so it shows no
      load): a first solve with every launch count set to 0
      just before it and read just after (each kernel of the path must have
      launched: once per backward sweep, and for the rollout once per
-     line-search trial plus once for the solve's initial rollout; no
+     line-search trial plus once for the solve's initial rollout; the
+     limit penalty's cost on the flagship, posorn2nd and timeopt once per
+     trial plus once, its arrays once per sweep; no
      backward kernel of another path may have launched), then the median of
      2 timed repeats with the spread, solves/s, median cost and iterations;
      sequential_h600 and planar2d within 2x of the JAX package's float32
@@ -618,7 +625,8 @@ def phase_device_and_build():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    from ilqr_planner_torch.ops.cuda_kernels import (nvcc_build, riccati,
+    from ilqr_planner_torch.ops.cuda_kernels import (limit_penalty,
+                                                     nvcc_build, riccati,
                                                      rollout_time1,
                                                      segment_backward,
                                                      segment_backward_2nd)
@@ -631,7 +639,8 @@ def phase_device_and_build():
               **{f"rollout_time1 n={n}": (rollout_time1, (n,)) for n in (8, 7)},
               **{f"riccati {n}x{nq}": (riccati, (n, nq))
                  for n, nq in ((7, 6), (7, 7), (7, 3), (6, 6), (6, 3), (7, 12),
-                               (7, 13), (3, 2))}}
+                               (7, 13), (3, 2))},
+              "limit_penalty": (limit_penalty, ())}
     # the libraries already built: the build below compiles every other one
     present = set(nvcc_build.BUILD_DIR.glob("*.so"))
     meter = CompileMeter()
@@ -915,6 +924,116 @@ def phase_kernels_vs_twins(torch):
     return res
 
 
+# The bulk benchmark cells' trajectories (benchmark/configs): n and B of
+# posorn_h100.bulk and timeopt_h100.bulk, both at H = 100.
+LIMIT_CELLS = {"posorn": (N, 294912), "timeopt": (8, 131072)}
+
+
+def limit_penalty_inputs(torch, n, batch, dtype):
+    """An affine line-search family [H, 2, n, batch] on the card (base Q0 +
+    0.05 N(0, 1), direction 0.05 N(0, 1), seed 11; a time slot, n = 8, at 0)
+    and one limited subsystem [1, 4, n] at Q0 +- 0.1, penalty 1, the time
+    slot unweighted: about 5% of the base's entries bind, 7% of the trial's
+    at alpha 0.5."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    fam = 0.05 * torch.randn((H, 2, n, batch), generator=g, dtype=dtype,
+                             device="cuda")
+    q = torch.zeros(n, dtype=dtype, device="cuda")
+    q[:7] = torch.as_tensor(Q0, dtype=dtype)
+    fam[:, 0] += q[:, None]
+    weight = torch.ones_like(q)
+    weight[7:] = 0.0
+    table = torch.stack([q + 0.1, q - 0.1, weight, torch.ones_like(q)])
+    return fam, table[None].contiguous()
+
+
+def phase_limit_penalty(torch):
+    """The limit-penalty kernel against its twins at the bulk cells' shapes,
+    float64 and float32: the arrays form (lx, L2) bit for bit, the cost
+    within H n nsub eps of the twin's on every lane (a sum of H n nsub
+    non-negative terms in another order), its zero lanes exactly; each
+    form's CUDA-event time beside the twin's and its bytes bound (each
+    input read once, each output written once)."""
+    from ilqr_planner_torch.ops.cuda_kernels import limit_penalty as lp
+
+    res = {}
+    for cell, (n, batch) in LIMIT_CELLS.items():
+        N_el = H * n * batch
+        # form -> (cost?, elements read, elements written)
+        forms = {"cost": (True, N_el, batch), "arrays": (False, N_el, 2 * N_el)}
+        if cell == "posorn":
+            forms = {"cost_affine": (True, 2 * N_el, batch), **forms}
+        outs = {form: {"phase": "kernel_vs_twin", "name": "limit_penalty",
+                       "form": form, "shapes": {"H": H, "n": n, "B": batch,
+                                                "nsub": 1}}
+                for form in forms}
+        for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+            fam, table = limit_penalty_inputs(torch, n, batch, dtype)
+            Xb, Xd = fam[:, 0], fam[:, 1]
+            X = Xb.contiguous()
+            calls = {
+                "cost_affine": (lambda: (lp.limit_cost(Xb, Xd, 0.5, table=table),),
+                                lambda: (lp.limit_cost_reference(
+                                    Xb, Xd, 0.5, table=table),)),
+                "cost": (lambda: (lp.limit_cost(X, table=table),),
+                         lambda: (lp.limit_cost_reference(X, table=table),)),
+                "arrays": (lambda: lp.limit_arrays(X, table=table),
+                           lambda: lp.limit_arrays_reference(X, table=table))}
+            tol = H * n * table.shape[0] * torch.finfo(dtype).eps
+            for form, (is_cost, _, _) in forms.items():
+                out, (kernel, twin) = outs[form], calls[form]
+                got, want = kernel(), twin()
+                torch.cuda.synchronize()
+                out[f"max_abs_err_{tag}"] = max(float((g - w).abs().max())
+                                                for g, w in zip(got, want))
+                out[f"binding_share_{tag}"] = float((want[-1] != 0).double().mean())
+                if is_cost:
+                    zero = want[0] == 0
+                    rel = ((got[0] - want[0]).abs() / want[0])[~zero]
+                    out[f"max_lane_rel_err_{tag}"] = float(rel.max())
+                    out[f"lane_rel_tol_{tag}"] = tol
+                    held = (bool((got[0][zero] == 0).all())
+                            and out[f"max_lane_rel_err_{tag}"] <= tol)
+                else:
+                    held = all(torch.equal(g, w) for g, w in zip(got, want))
+                out[f"held_{tag}"] = held
+                del got, want
+                out[f"kernel_ms_{tag}"] = cuda_ms(torch, kernel, inner=5)
+                out[f"twin_ms_{tag}"] = cuda_ms(torch, twin, reps=2, warm=1)
+                out.setdefault("launch", {})[tag] = lp.launch_geometry(
+                    "cost" if is_cost else "arrays", batch, dtype, H, n)
+            del fam, table, Xb, Xd, X, calls
+            torch.cuda.empty_cache()
+        for form, (is_cost, reads, writes) in forms.items():
+            out = outs[form]
+            # a compare pair, the gap and its product with the weight, and
+            # the sum or the two accumulations, an element; the trial's
+            # x = xb + alpha xd two more
+            flops = (6 if form == "cost_affine" else 4) * N_el
+            out.update(bound((reads + writes) * 4, flops))
+            out["library_note"] = "no single PyTorch call computes this penalty"
+            res[f"limit_penalty {cell} {form}"] = out
+            emit(out)
+            if not (out["binding_share_f64"] > 0 and out["binding_share_f32"] > 0):
+                fail(f"limit_penalty {cell} {form}: the limits bind nowhere")
+            if not (out["held_f64"] and out["held_f32"]):
+                fail(f"limit_penalty {cell} {form}: kernel vs twin "
+                     + ("beyond the sum-order bound" if is_cost
+                        else "not bit for bit"))
+    return res
+
+
+def _gate_limit_launches(path, counts, sweeps):
+    """Every limit evaluation of a fleet solve with limits is one launch of
+    the limit-penalty kernel: the cost once for the initial rollout and
+    once a line-search trial, the arrays once a backward sweep."""
+    if (counts["limit_penalty_cost"] != 1 + counts["trials"]
+            or counts["limit_penalty_arrays"] != sweeps):
+        fail(f"{path}: limit_penalty launched {counts['limit_penalty_cost']} "
+             f"cost and {counts['limit_penalty_arrays']} arrays times for "
+             f"{counts['trials']} trials and {sweeps} sweeps")
+
+
 def phase_riccati_rounding(torch):
     """One line a case, no gate: the riccati kernel against its twin on the
     card at inputs harder than the gated checks' (the limit penalty live on
@@ -957,10 +1076,13 @@ KERNEL_FUNCTIONS = {"segment_backward_kernel": "segment_backward",
                     "second_kernel": "segment_backward_2nd",
                     "time1_kernel": "segment_backward_time1",
                     "rollout_kernel": "rollout_time1",
-                    "riccati_kernel": "riccati"}
+                    "riccati_kernel": "riccati",
+                    "limit_penalty_cost_kernel": "limit_penalty_cost",
+                    "limit_penalty_arrays_kernel": "limit_penalty_arrays"}
 
 
 def _reset_counts():
+    from ilqr_planner_torch.ops.cuda_kernels import limit_penalty as lp
     from ilqr_planner_torch.ops.cuda_kernels import riccati as ric
     from ilqr_planner_torch.ops.cuda_kernels import rollout_time1 as rt1
     from ilqr_planner_torch.ops.cuda_kernels import segment_backward as sb
@@ -970,14 +1092,16 @@ def _reset_counts():
     sb.LAUNCHES = 0
     rt1.LAUNCHES = 0
     ric.LAUNCHES = 0
-    for k in sb2.LAUNCHES:
-        sb2.LAUNCHES[k] = 0
+    for launches in (sb2.LAUNCHES, lp.LAUNCHES):
+        for k in launches:
+            launches[k] = 0
     fleet.TRIALS = 0
     fleet.GENERIC_SWEEPS = 0
     ilqr.TRIALS = 0
 
 
 def _read_counts():
+    from ilqr_planner_torch.ops.cuda_kernels import limit_penalty as lp
     from ilqr_planner_torch.ops.cuda_kernels import riccati as ric
     from ilqr_planner_torch.ops.cuda_kernels import rollout_time1 as rt1
     from ilqr_planner_torch.ops.cuda_kernels import segment_backward as sb
@@ -988,6 +1112,8 @@ def _read_counts():
             "segment_backward_2nd": sb2.LAUNCHES["second"],
             "segment_backward_time1": sb2.LAUNCHES["time1"],
             "rollout_time1": rt1.LAUNCHES, "riccati": ric.LAUNCHES,
+            "limit_penalty_cost": lp.LAUNCHES["cost"],
+            "limit_penalty_arrays": lp.LAUNCHES["arrays"],
             "trials": fleet.TRIALS, "recursive_trials": ilqr.TRIALS,
             "generic_sweeps": fleet.GENERIC_SWEEPS}
 
@@ -1072,6 +1198,7 @@ def phase_flagship(torch):
     if counts["segment_backward"] == 0 or counts["segment_backward"] != sweeps:
         fail(f"flagship: segment_backward launched {counts['segment_backward']} "
              f"times for {sweeps} sweeps")
+    _gate_limit_launches("flagship", counts, sweeps)
     others = [k for k in KERNELS if counts[k] and k != "segment_backward"]
     if others:
         fail(f"flagship: kernels of other paths launched: {others}")
@@ -1144,6 +1271,7 @@ def phase_new_path(torch, path):
     kern = "segment_backward_2nd" if path == "posorn2nd" else "segment_backward_time1"
     if sweeps == 0 or counts[kern] != sweeps:
         fail(f"{path}: {kern} launched {counts[kern]} times for {sweeps} sweeps")
+    _gate_limit_launches(path, counts, sweeps)
     # the time-optimal rollout: once per line-search trial, and once for the
     # solve's initial rollout
     if path == "timeopt" and (counts["trials"] == 0 or
@@ -1435,8 +1563,13 @@ def profile_window(torch, path, run):
                                         lambda: run(PROFILE_ITERS))
     busy_ms = sum(_dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -_dev_us(e))[:8]
-    ours = {name: [_dev_us(e) / 1e3 / e.count, e.count] for e in kernels
-            for name in KERNEL_FUNCTIONS if f"::{name}<" in e.key}
+    ours = {}   # every instantiation of a kernel together
+    for e in kernels:
+        for name in KERNEL_FUNCTIONS:
+            if f"::{name}<" in e.key:
+                us, count = ours.get(name, (0.0, 0))
+                ours[name] = (us + _dev_us(e), count + e.count)
+    ours = {name: [us / 1e3 / count, count] for name, (us, count) in ours.items()}
     emit({"phase": "profile", "path": path, "iterations": PROFILE_ITERS,
           "hand_written_kernels_ms_a_launch": ours,
           "line_search_trials": counts["trials"] + counts["recursive_trials"],
@@ -3398,6 +3531,7 @@ def main():
     kv = timed("kernels_vs_twins", phase_kernels_vs_twins, torch)
     kv.update(timed("kernels_vs_twins", phase_slice_kernels, torch))
     kv.update(timed("kernels_vs_twins", phase_al_kernel, torch))
+    kv.update(timed("kernels_vs_twins", phase_limit_penalty, torch))
     e2e = {}
     out_ov, run_ov, ov = timed("flagship_ov", phase_flagship_ov, torch)
     e2e["flagship_ov"] = (out_ov, run_ov)
@@ -3464,6 +3598,8 @@ def main():
     pallas = "ilqr_planner_tpu/ops/pallas_kernels/"
     sb_src = pallas + "segment_backward.py:339"
     ric_src = pallas + "riccati.py:258"
+    lp_src = ("none: XLA fuses the JAX package's jnp penalty "
+              "(ilqr_planner_tpu/solvers/fleet.py _limit_arrays, _limit_cost_full)")
     riccati_row = row(
         "riccati", "riccati.cu", ric_src, kv["riccati"],
         e2e["recursive"][0]["launches"]["riccati"], "recursive", width="7x6",
@@ -3517,7 +3653,14 @@ def main():
                           ("7x13", "hybrid_h500_recursive"),
                           ("3x2", "planar2d_recursive"))],
         row("riccati", "riccati.cu", ric_src, kv_b1, pylqr_launches, "pylqr",
-            width="7x6 B=1 (pylqr POS_ORN_SYS, float64 solve)")],
+            width="7x6 B=1 (pylqr POS_ORN_SYS, float64 solve)"),
+        *[row(f"limit_penalty_{form.split('_')[0]}", "limit_penalty.cu",
+              lp_src, kv[f"limit_penalty {cell} {form}"],
+              e2e[path][0]["launches"][f"limit_penalty_{form.split('_')[0]}"],
+              path, width=f"{form} {cell}_h100.bulk shape")
+          for cell, path in (("posorn", "flagship"), ("timeopt", "timeopt"))
+          for form in ("cost_affine", "cost", "arrays")
+          if f"limit_penalty {cell} {form}" in kv]],
         "phase_s": phase_s, "total_s": time.time() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,10 @@ scan-free trials); the time-optimal kinds, whose B depends on u, re-roll
 each trial (`_run_trials`): on the card every closed-loop rollout of the
 first-order kind, the initial one included, is one launch of
 `ops/cuda_kernels/rollout_time1.py`, and the double integrator's is a loop
-of tensor ops. Lanes freeze one by one (early stop alpha sqrt(sum ||du||)
+of tensor ops. The joint-limit penalty over whole trajectories (each
+trial's cost, read from the affine family's base and direction; the
+sweep's streamed stage rows) is one launch of
+`ops/cuda_kernels/limit_penalty.py` on the card. Lanes freeze one by one (early stop alpha sqrt(sum ||du||)
 < 1e-3 and cost < 1e-3, or the iteration budget); the loop ends when every
 lane is frozen.
 
@@ -52,6 +55,8 @@ import numpy as np
 import torch
 
 from ilqr_planner_torch.models.planar import FD_STEP
+from ilqr_planner_torch.ops.cuda_kernels.limit_penalty import (limit_arrays,
+                                                               limit_cost)
 from ilqr_planner_torch.ops.cuda_kernels.rollout_time1 import rollout_time1
 from ilqr_planner_torch.ops.cuda_kernels.segment_backward import segment_backward
 from ilqr_planner_torch.ops.cuda_kernels.segment_backward_2nd import (
@@ -222,6 +227,7 @@ class _Consts:
         self.Rt = [float(v) for v in np.asarray(spec.Rt.cpu().numpy(), np_dtype)]
         subs = spec.subs if spec.kind == "sequential" else (spec,)
         self.subs = [_SubC(s, ov_names) for s in subs]
+        self.limit_table = _limit_table(self.subs)
         self.ov_names = ov_names
         # one FK walk per robot, shared by the subsystems on it
         keys = {}
@@ -622,40 +628,33 @@ def _kp_terms_at(cc: _Consts, k: int, x, want_grads: bool, kpa=None):
 # joint-limit penalty over whole trajectories
 # ---------------------------------------------------------------------------
 
-def _limit_terms(sc: _SubC, X):
-    """(Ld, ql) of the quadratic limit penalty over X [.., n, B]."""
-    smax, smin = sc.smax[:, None], sc.smin[:, None]
-    over = X > smax
-    under = X < smin
-    active = (sc.weight[:, None] != 0) & (over | under)
-    zero = torch.zeros_like(X)
-    Ld = torch.where(active, torch.full_like(X, sc.penalty), zero)
-    ql = torch.where(over, smax - X, torch.where(under, smin - X, zero))
-    return Ld, torch.where(active, ql, zero)
+def _limit_table(subs):
+    """The limited subsystems' (smax, smin, weight, penalty) rows
+    [nsub, 4, n], in subsystem order; None where no subsystem sets limits."""
+    rows = [torch.stack([sc.smax, sc.smin, sc.weight,
+                         torch.full_like(sc.smax, sc.penalty)])
+            for sc in subs if sc.limits_set]
+    return torch.stack(rows) if rows else None
 
 
 @spanned("stage_terms")
 def _limit_arrays(cc: _Consts, X):
-    """Limit gradient and diagonal Hessian over [H, n, B]: (Lq, L2)."""
-    Lq = torch.zeros_like(X)
-    L2 = torch.zeros_like(X)
-    for sc in cc.subs:
-        if sc.limits_set:
-            Ld, ql = _limit_terms(sc, X)
-            Lq = Lq + Ld * ql
-            L2 = L2 + Ld * Ld
-    return Lq, L2
+    """Negated limit gradient and diagonal Hessian over [H, n, B]:
+    (lx = -Lq, L2), one `limit_penalty` launch on the card."""
+    if cc.limit_table is None:
+        L2 = torch.zeros_like(X)
+        return -L2, L2
+    return limit_arrays(X, table=cc.limit_table)
 
 
 @spanned("stage_terms")
-def _limit_cost_full(cc: _Consts, X):
-    """Total limit-penalty cost of a trajectory [H, n, B] -> [B]."""
-    cost = torch.zeros_like(X[0, 0])
-    for sc in cc.subs:
-        if sc.limits_set:
-            Ld, ql = _limit_terms(sc, X)
-            cost = cost + (Ld * ql * ql).sum((0, 1))
-    return cost
+def _limit_cost_full(cc: _Consts, X, Xd=None, alpha=0.0):
+    """Total limit-penalty cost [B] of a trajectory [H, n, B], or of the
+    affine trial X + alpha Xd (read from X and Xd, never formed), one
+    `limit_penalty` launch on the card."""
+    if cc.limit_table is None:
+        return torch.zeros_like(X[0, 0])
+    return limit_cost(X, Xd, alpha, table=cc.limit_table)
 
 
 # ---------------------------------------------------------------------------
@@ -793,8 +792,7 @@ def _backward(cc: _Consts, X, U, kpa=None, al=None):
     uniform), "Is", "g", "lam" [H-1, nc, B]}.
     """
     H = cc.H
-    Lq, L2 = _limit_arrays(cc, X)
-    lx_all = -Lq
+    lx_all, L2 = _limit_arrays(cc, X)
     if al is not None and al["fold"]:
         L2, lx_all = _fold_al(al, L2, lx_all)
         al = None
@@ -809,7 +807,6 @@ def _backward(cc: _Consts, X, U, kpa=None, al=None):
     lx = lx_all[:H - 1]
     if inner:
         terms = [_kp_terms_at(cc, k, X[k], True, kpa) for k in inner]
-        lx = lx.clone()
         for k, (_, gx_k, _) in zip(inner, terms):
             lx[k] = lx[k] - gx_k
         gxx = torch.stack([g for _, _, g in terms])
@@ -908,14 +905,13 @@ def _run_trials_affine(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0,
     H = cc.H
 
     def trial(a):
-        Xa = Xb + a * Xd
-        cost = _limit_cost_full(cc, Xa)
+        cost = _limit_cost_full(cc, Xb, Xd, a)
         for k in cc.kp_steps:
             if k < H - 1:
                 uk = Ub[k] + a * Ud[k]
                 for i_sub, _ in cc.kp_at[k]:
                     cost = cost + (cc.subs[i_sub].Rt[:, None] * uk * uk).sum(0)
-            kc, _, _ = _kp_terms_at(cc, k, Xa[k], False, kpa)
+            kc, _, _ = _kp_terms_at(cc, k, Xb[k] + a * Xd[k], False, kpa)
             cost = cost + kc
         # ||du_k(alpha)||^2 >= 0 exactly; clamp the rounding tail
         du = torch.sqrt(torch.clamp(qa + (2.0 * a) * qb + (a * a) * qc,

@@ -8,10 +8,12 @@
     package (an `ast` walk, so comments and strings do not count).
 (c) The launch-geometry helpers of the kernels (each at the 7-DoF arm's
     widths and at 6 and 3 DoF; riccati at each residual width, at the
-    sequential specs' 12 and 13, the planar 2 and its widest) cover every
-    lane of a batch and stay within the shared memory a block may take on
-    the H100; every width up to a wrapper's stated limit fits a block; and
-    the wrappers' constants are the ones the CUDA sources define.
+    sequential specs' 12 and 13, the planar 2 and its widest; the limit
+    penalty's two forms at the arm's state widths, first and second order
+    and time-optimal) cover every lane of a batch and stay within the
+    shared memory a block may take on the H100; every width up to a
+    wrapper's stated limit fits a block; and the wrappers' constants are
+    the ones the CUDA sources define.
 """
 
 import ast
@@ -21,8 +23,8 @@ import re
 import pytest
 import torch
 
-from ilqr_planner_torch.ops.cuda_kernels import (nvcc_build, riccati,
-                                                 rollout_time1,
+from ilqr_planner_torch.ops.cuda_kernels import (limit_penalty, nvcc_build,
+                                                 riccati, rollout_time1,
                                                  segment_backward,
                                                  segment_backward_2nd)
 
@@ -179,6 +181,49 @@ def test_launch_geometry(kernel, B, dtype):
     assert g["smem_bytes"] % (g["lanes_per_block"] * itemsize) == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("B", BATCHES + (131072, 294912))
+@pytest.mark.parametrize("form", ["cost", "arrays"])
+@pytest.mark.parametrize("H,n", [(100, 7), (100, 8), (400, 14), (1, 3)])
+def test_limit_penalty_launch_geometry(H, n, form, B, dtype):
+    """The limit penalty's blocks cover every lane of the batch (16 bytes of
+    lanes a thread where B allows it) and every row, with less than one
+    block of lanes to spare; a block fits one H100 SM; a cost launch splits
+    the rows over at most 32 rows of threads a block, only while the
+    launch stays within `COST_TARGET_THREADS` threads (one wave of the
+    H100), in blocks of at least 128 threads, and its shared memory holds
+    one partial sum a lane and row of threads; an arrays launch stays
+    within the grid's 65535 row blocks."""
+    lp = limit_penalty
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    g = lp.launch_geometry(form, B, dtype, H, n)
+    assert g["vec"] == (16 // itemsize if B % (16 // itemsize) == 0 else 1)
+    assert g["lanes_per_block"] % g["vec"] == 0
+    gx, gy = g["grid"]
+    assert g["blocks"] == gx * gy
+    assert gx * g["lanes_per_block"] >= B > (gx - 1) * g["lanes_per_block"]
+    assert gy * g["rows_per_block"] >= H * n > (gy - 1) * g["rows_per_block"]
+    assert gy <= 65535
+    assert g["threads"] % 32 == 0 and 32 <= g["threads"] <= 1024
+    assert g["smem_bytes"] <= nvcc_build.SMEM_PER_BLOCK_MAX
+    assert g["lanes_per_sm"] >= g["lanes_per_block"]
+    lx, ty = g["block"]
+    assert lx % 32 == 0 and g["threads"] == lx * ty
+    assert g["lanes_per_block"] == lx * g["vec"]
+    if form == "cost":
+        assert ty & (ty - 1) == 0 and ty <= min(32, H * n)
+        assert g["threads"] >= lp.COST_MIN_THREADS
+        nv = -(-B // g["vec"])
+        assert ty == 1 or nv * ty <= lp.COST_TARGET_THREADS
+        assert (ty == 32 or 2 * ty > H * n
+                or nv * 2 * ty > lp.COST_TARGET_THREADS)
+        assert g["smem_bytes"] == g["threads"] * g["vec"] * itemsize
+    else:
+        assert g["threads"] == lp.ARRAYS_THREADS and g["smem_bytes"] == 0
+        assert g["rows_per_block"] >= lp.ARRAYS_ROWS
+
+
 # each wrapper's stated limit: (width in the wrapper's terms, its geometry)
 LIMITS = {
     "segment_backward": (segment_backward.MAX_N, 1,
@@ -271,3 +316,10 @@ def test_geometry_matches_the_cuda_sources():
         rollout_time1.RING_STAGES)
     assert "rollout_kernel<N, T><<<blocks, N * kLanes" in roll
     assert "if (n != ROLLOUT_N) return 1;" in roll
+    lim = (CSRC / "limit_penalty.cu").read_text()
+    assert re.search(r"#define LP_ARRAYS_THREADS (\d+)", lim).group(1) == str(
+        limit_penalty.ARRAYS_THREADS)
+    assert "const dim3 block(LX, TY);" in lim
+    assert "<<<grid, kArraysThreads, 0, stream>>>" in lim
+    for t, tag in (("float", "f32"), ("double", "f64")):
+        assert f"LP_ENTRIES({t}, {tag})" in lim
