@@ -625,7 +625,7 @@ def phase_device_and_build():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    from ilqr_planner_torch.ops.cuda_kernels import (limit_penalty,
+    from ilqr_planner_torch.ops.cuda_kernels import (kp_cost, limit_penalty,
                                                      nvcc_build, riccati,
                                                      rollout_time1,
                                                      segment_backward,
@@ -640,7 +640,7 @@ def phase_device_and_build():
               **{f"riccati {n}x{nq}": (riccati, (n, nq))
                  for n, nq in ((7, 6), (7, 7), (7, 3), (6, 6), (6, 3), (7, 12),
                                (7, 13), (3, 2))},
-              "limit_penalty": (limit_penalty, ())}
+              "limit_penalty": (limit_penalty, ()), "kp_cost": (kp_cost, ())}
     # the libraries already built: the build below compiles every other one
     present = set(nvcc_build.BUILD_DIR.glob("*.so"))
     meter = CompileMeter()
@@ -1023,6 +1023,187 @@ def phase_limit_penalty(torch):
     return res
 
 
+# The bulk cells' keypoint-cost calls: (spec, batch function, bulk batch,
+# iterations of the small solve whose trajectories the inputs start from,
+# the form a bulk trial calls: the affine family or a rollout's arrays).
+KP_CELLS = {"posorn": (flagship_spec, flagship_batch, 294912, NB_ITER, True),
+            "timeopt": (timeopt_spec, timeopt_batch, 131072, 20, False)}
+KP_SMALL_B = 2048
+
+
+def kp_cost_inputs(torch, cell):
+    """Float64 inputs of the keypoint cost at a bulk cell's shape: a small
+    float64 fleet solve's trajectories on the card (lanes near the targets)
+    tiled to the bulk batch, each lane moved by sigma N(0, 1) with sigma
+    log-uniform in [1e-6, 0.1] (seed 21), so lanes lie from a reached target
+    (where acos is steepest) to far from it; directions 0.05 N(0, 1); the
+    incoming cost U(0, 1). -> (Xb, Xd, Ub, Ud, cost), Xb and Xd views of one
+    [H, 2, n, B] family and Ud of a [H-1, 2, m, B] one, as the affine line
+    search holds them."""
+    from ilqr_planner_torch.solvers import fleet
+
+    spec_fn, batch_fn, batch, nb_iter, _ = KP_CELLS[cell]
+    spec = spec_fn(torch, torch.float64, "cuda")
+    x0s, U0s = batch_fn(KP_SMALL_B)
+    res = fleet.make_fleet_solver(spec, nb_iter)(
+        torch.as_tensor(x0s, dtype=torch.float64, device="cuda"),
+        torch.as_tensor(U0s, dtype=torch.float64, device="cuda"))
+    g = torch.Generator(device="cuda").manual_seed(21)
+    idx = torch.randint(0, KP_SMALL_B, (batch,), generator=g, device="cuda")
+    sigma = 10.0 ** torch.empty(batch, dtype=torch.float64,
+                                device="cuda").uniform_(-6, -1, generator=g)
+
+    def family(T):
+        T = T.permute(1, 2, 0)[..., idx]
+        base = T + sigma * torch.randn(T.shape, generator=g, dtype=T.dtype,
+                                       device="cuda")
+        return torch.stack([base, 0.05 * torch.randn(
+            T.shape, generator=g, dtype=T.dtype, device="cuda")], dim=1)
+
+    Xbd, Ubd = family(res.X), family(res.U)
+    cost = torch.rand(batch, generator=g, dtype=torch.float64, device="cuda")
+    return Xbd[:, 0], Xbd[:, 1], Ubd[:, 0].contiguous(), Ubd[:, 1], cost
+
+
+def kp_cost_flops(cc, affine):
+    """A lower count of the kernel's operations a lane: the chain walk (per
+    revolute joint p += R o, R <- R Ro Raa, Raa: 145; prismatic 81) and the
+    tip (63) a keypoint step, and per keypoint e^T P e (2 nq^2 + 2 nq) and
+    the control penalty (3 m, inner steps); the affine trial's 2 a state
+    and control element read."""
+    rep = cc.chain_of[0]
+    walk = sum(81 if pr else 145 for pr in rep.prismatic) + 63
+    flops = 0
+    for k in cc.kp_steps:
+        flops += walk + (2 * cc.n if affine else 0)
+        for i, _ in cc.kp_at[k]:
+            nq = cc.subs[i].nq
+            flops += 2 * nq * nq + 2 * nq
+            if k < cc.H - 1:
+                flops += 3 * cc.m + (2 * cc.m if affine else 0)
+    return flops
+
+
+def kernel_device_ms(torch, fn, pattern, reps=20):
+    """Mean device ms of the kernels whose name holds `pattern` over `reps`
+    calls of fn() under torch.profiler (the mean of the launches it
+    records; it may drop a few): the kernel alone, where CUDA events around
+    back-to-back calls would count the host's time in a wrapper that takes
+    longer than its kernel."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if pattern in e.key
+           and e.device_type == torch.autograd.DeviceType.CUDA]
+    count = sum(e.count for e in evs)
+    if count == 0:
+        fail(f"{pattern}: no kernel profiled in {reps} calls")
+    return sum(_dev_us(e) for e in evs) / count / 1e3
+
+
+def phase_kp_cost(torch):
+    """The keypoint-cost kernel against its twin (the fleet's tensor path,
+    `_kp_cost_ops`) at the bulk cells' shapes, both forms at posorn (the
+    affine trial read from the family, as each line-search trial calls it;
+    the plain trajectory, as the initial rollout does), the plain form at
+    timeopt (each trial's rollout), float64 and float32. Gates: float64,
+    every lane within 1e-9 of max(1, |twin|); float32, every lane's error
+    against the float64 twin on the same lanes within twice the float32
+    twin's own error plus 1e-6 max(1, cost) (acos is steep at a reached
+    target: one ulp of the dot product moves the distance by ~1e-4); one
+    launch a call. Times: CUDA events, the kernel beside its bound (each
+    state and control element at a keypoint step read once, the cost read
+    and written; `kp_cost_flops`; its device time under the profiler, and
+    through the wrapper by CUDA events, which a slow host's wrapper bounds)
+    and the twin."""
+    from ilqr_planner_torch.ops.cuda_kernels import kp_cost as kpc
+    from ilqr_planner_torch.solvers import fleet
+
+    res = {}
+    for cell, (spec_fn, _, batch, _, affine_cell) in KP_CELLS.items():
+        fam64 = kp_cost_inputs(torch, cell)
+        forms = ("affine", "plain") if affine_cell else ("plain",)
+        cc64 = fleet._Consts(spec_fn(torch, torch.float64, "cuda"))
+        for form in forms:
+            affine = form == "affine"
+            out = {"phase": "kernel_vs_twin", "name": "kp_cost", "form": form,
+                   "cell": cell, "shapes": {"H": H, "n": cc64.n, "m": cc64.m,
+                                            "B": batch,
+                                            "kp_steps": list(cc64.kp_steps)}}
+            for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+                cc = fleet._Consts(spec_fn(torch, dtype, "cuda"))
+                Xb, Xd, Ub, Ud, cost = (t.to(dtype) for t in fam64)
+                if dtype == torch.float64:
+                    Xb, Xd, Ud = fam64[0], fam64[1], fam64[3]
+                else:
+                    Xbd = torch.stack([Xb, Xd], 1)
+                    Ubd = torch.stack([Ub, Ud], 1)
+                    Xb, Xd, Ud = Xbd[:, 0], Xbd[:, 1], Ubd[:, 1]
+                args = ((Xb, Ub, cost, Xd, Ud, 0.5) if affine
+                        else (Xb.contiguous(), Ub, cost))
+                before = kpc.LAUNCHES
+                got = kpc.kp_cost(*args, table=cc.kp_table)
+                torch.cuda.synchronize()
+                launched = kpc.LAUNCHES - before
+                twin = fleet._kp_cost_ops(cc, *args)
+                truth = fleet._kp_cost_ops(cc64, *(
+                    a.double() if torch.is_tensor(a) else a for a in args))
+                scale = torch.clamp(truth.abs(), min=1.0)
+                e_k = (got.double() - truth).abs()
+                e_t = (twin.double() - truth).abs()
+                out[f"launches_{tag}"] = launched
+                out[f"finite_{tag}"] = bool(torch.isfinite(got).all())
+                out[f"max_abs_err_{tag}"] = float((got - twin).abs().max())
+                out[f"max_err_vs_f64_{tag}"] = float(e_k.max())
+                out[f"twin_max_err_vs_f64_{tag}"] = float(e_t.max())
+                out[f"max_err_over_scale_{tag}"] = float((e_k / scale).max())
+                if tag == "f64":
+                    held = bool((e_k <= F64_REL_GATE * scale).all())
+                else:
+                    held = bool((e_k <= 2 * e_t + 1e-6 * scale).all())
+                out[f"held_{tag}"] = held and launched == 1
+                out[f"median_cost_{tag}"] = float(truth.median())
+                call = lambda: kpc.kp_cost(*args, table=cc.kp_table)  # noqa: E731
+                out[f"kernel_ms_{tag}"] = kernel_device_ms(torch, call, "kp_cost_kernel")
+                out[f"wrapper_ms_{tag}"] = cuda_ms(torch, call, inner=5)
+                out[f"twin_ms_{tag}"] = cuda_ms(
+                    torch, lambda: fleet._kp_cost_ops(cc, *args), reps=3, warm=1)
+                out.setdefault("launch", {})[tag] = {
+                    "blocks": -(-batch // kpc.THREADS), "threads": kpc.THREADS,
+                    "smem_bytes": kpc.smem_bytes(cc.kp_table)}
+                del got, twin, truth, args
+            n_steps = len(cc64.kp_steps)
+            inner = sum(k < H - 1 for k in cc64.kp_steps)
+            reads = (n_steps * cc64.n + inner * cc64.m) * (2 if affine else 1) + 1
+            out.update(bound((reads + 1) * 4 * batch,
+                             kp_cost_flops(cc64, affine) * batch))
+            out["library_note"] = "no single PyTorch call computes this cost"
+            res[f"kp_cost {cell} {form}"] = out
+            emit(out)
+            if not (out["finite_f64"] and out["finite_f32"]):
+                fail(f"kp_cost {cell} {form}: kernel output not finite")
+            if not (out["held_f64"] and out["held_f32"]):
+                fail(f"kp_cost {cell} {form}: kernel vs twin beyond the gate, "
+                     f"or not one launch a call")
+        del fam64
+        torch.cuda.empty_cache()
+    return res
+
+
+def _gate_kp_launches(path, counts, covered):
+    """Where the keypoint-cost kernel covers the spec, every cost-only
+    keypoint evaluation of a fleet solve is one launch of it: the initial
+    rollout's and one a line-search trial; elsewhere it never launches."""
+    want = 1 + counts["trials"] if covered else 0
+    if counts["kp_cost"] != want:
+        fail(f"{path}: kp_cost launched {counts['kp_cost']} times for "
+             f"{counts['trials']} trials (expected {want})")
+
+
 def _gate_limit_launches(path, counts, sweeps):
     """Every limit evaluation of a fleet solve with limits is one launch of
     the limit-penalty kernel: the cost once for the initial rollout and
@@ -1078,10 +1259,12 @@ KERNEL_FUNCTIONS = {"segment_backward_kernel": "segment_backward",
                     "rollout_kernel": "rollout_time1",
                     "riccati_kernel": "riccati",
                     "limit_penalty_cost_kernel": "limit_penalty_cost",
-                    "limit_penalty_arrays_kernel": "limit_penalty_arrays"}
+                    "limit_penalty_arrays_kernel": "limit_penalty_arrays",
+                    "kp_cost_kernel": "kp_cost"}
 
 
 def _reset_counts():
+    from ilqr_planner_torch.ops.cuda_kernels import kp_cost as kpc
     from ilqr_planner_torch.ops.cuda_kernels import limit_penalty as lp
     from ilqr_planner_torch.ops.cuda_kernels import riccati as ric
     from ilqr_planner_torch.ops.cuda_kernels import rollout_time1 as rt1
@@ -1091,6 +1274,7 @@ def _reset_counts():
 
     sb.LAUNCHES = 0
     rt1.LAUNCHES = 0
+    kpc.LAUNCHES = 0
     ric.LAUNCHES = 0
     for launches in (sb2.LAUNCHES, lp.LAUNCHES):
         for k in launches:
@@ -1101,6 +1285,7 @@ def _reset_counts():
 
 
 def _read_counts():
+    from ilqr_planner_torch.ops.cuda_kernels import kp_cost as kpc
     from ilqr_planner_torch.ops.cuda_kernels import limit_penalty as lp
     from ilqr_planner_torch.ops.cuda_kernels import riccati as ric
     from ilqr_planner_torch.ops.cuda_kernels import rollout_time1 as rt1
@@ -1114,7 +1299,7 @@ def _read_counts():
             "rollout_time1": rt1.LAUNCHES, "riccati": ric.LAUNCHES,
             "limit_penalty_cost": lp.LAUNCHES["cost"],
             "limit_penalty_arrays": lp.LAUNCHES["arrays"],
-            "trials": fleet.TRIALS, "recursive_trials": ilqr.TRIALS,
+            "kp_cost": kpc.LAUNCHES, "trials": fleet.TRIALS, "recursive_trials": ilqr.TRIALS,
             "generic_sweeps": fleet.GENERIC_SWEEPS}
 
 
@@ -1199,6 +1384,7 @@ def phase_flagship(torch):
         fail(f"flagship: segment_backward launched {counts['segment_backward']} "
              f"times for {sweeps} sweeps")
     _gate_limit_launches("flagship", counts, sweeps)
+    _gate_kp_launches("flagship", counts, True)
     others = [k for k in KERNELS if counts[k] and k != "segment_backward"]
     if others:
         fail(f"flagship: kernels of other paths launched: {others}")
@@ -1272,6 +1458,7 @@ def phase_new_path(torch, path):
     if sweeps == 0 or counts[kern] != sweeps:
         fail(f"{path}: {kern} launched {counts[kern]} times for {sweeps} sweeps")
     _gate_limit_launches(path, counts, sweeps)
+    _gate_kp_launches(path, counts, path == "timeopt")
     # the time-optimal rollout: once per line-search trial, and once for the
     # solve's initial rollout
     if path == "timeopt" and (counts["trials"] == 0 or
@@ -1800,6 +1987,7 @@ def phase_flagship_ov(torch):
         fail("flagship_ov: the record does not end at each lane's final cost "
              "with NaN beyond its last iteration")
     _gate_only("flagship_ov", counts, sweeps)
+    _gate_kp_launches("flagship_ov", counts, False)
     return out, run, ov
 
 
@@ -1847,6 +2035,7 @@ def phase_sequential(torch):
            "backward_sweeps": int(res.iterations.max())}
     _gate_quality(out, "sequential_h600", SEQ_JAX_COST)
     _gate_only("sequential_h600", counts, int(res.iterations.max()))
+    _gate_kp_launches("sequential_h600", counts, True)
     return out, run
 
 
@@ -1861,6 +2050,7 @@ def phase_planar(torch):
            "backward_sweeps": int(res.iterations.max())}
     _gate_quality(out, "planar2d", PLANAR_JAX_COST)
     _gate_only("planar2d", counts, int(res.iterations.max()))
+    _gate_kp_launches("planar2d", counts, False)
     return out, run
 
 
@@ -3532,6 +3722,7 @@ def main():
     kv.update(timed("kernels_vs_twins", phase_slice_kernels, torch))
     kv.update(timed("kernels_vs_twins", phase_al_kernel, torch))
     kv.update(timed("kernels_vs_twins", phase_limit_penalty, torch))
+    kv.update(timed("kernels_vs_twins", phase_kp_cost, torch))
     e2e = {}
     out_ov, run_ov, ov = timed("flagship_ov", phase_flagship_ov, torch)
     e2e["flagship_ov"] = (out_ov, run_ov)
@@ -3600,6 +3791,8 @@ def main():
     ric_src = pallas + "riccati.py:258"
     lp_src = ("none: XLA fuses the JAX package's jnp penalty "
               "(ilqr_planner_tpu/solvers/fleet.py _limit_arrays, _limit_cost_full)")
+    kp_src = ("none: XLA fuses the JAX package's jnp keypoint terms "
+              "(ilqr_planner_tpu/solvers/fleet.py _kp_terms_at)")
     riccati_row = row(
         "riccati", "riccati.cu", ric_src, kv["riccati"],
         e2e["recursive"][0]["launches"]["riccati"], "recursive", width="7x6",
@@ -3660,7 +3853,13 @@ def main():
               path, width=f"{form} {cell}_h100.bulk shape")
           for cell, path in (("posorn", "flagship"), ("timeopt", "timeopt"))
           for form in ("cost_affine", "cost", "arrays")
-          if f"limit_penalty {cell} {form}" in kv]],
+          if f"limit_penalty {cell} {form}" in kv],
+        *[row("kp_cost", "kp_cost.cu", kp_src, kv[f"kp_cost {cell} {form}"],
+              e2e[path][0]["launches"]["kp_cost"], path,
+              width=f"{form} {cell}_h100.bulk shape")
+          for cell, path in (("posorn", "flagship"), ("timeopt", "timeopt"))
+          for form in ("affine", "plain")
+          if f"kp_cost {cell} {form}" in kv]],
         "phase_s": phase_s, "total_s": time.time() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -26,9 +26,14 @@ first-order kind, the initial one included, is one launch of
 of tensor ops. The joint-limit penalty over whole trajectories (each
 trial's cost, read from the affine family's base and direction; the
 sweep's streamed stage rows) is one launch of
-`ops/cuda_kernels/limit_penalty.py` on the card. Lanes freeze one by one (early stop alpha sqrt(sum ||du||)
-< 1e-3 and cost < 1e-3, or the iteration budget); the loop ends when every
-lane is frozen.
+`ops/cuda_kernels/limit_penalty.py` on the card; the keypoint-step costs
+of a trial or rollout (`_kp_cost`: the chain walk, residuals, e^T P e and
+control penalty at every keypoint step) are one launch of
+`ops/cuda_kernels/kp_cost.py` on the card where that kernel covers the spec
+(first-order posorn, posorn_time and point systems on one serial chain, no
+keypoint overrides), tensor ops elsewhere. Lanes freeze one by one (early
+stop alpha sqrt(sum ||du||) < 1e-3 and cost < 1e-3, or the iteration
+budget); the loop ends when every lane is frozen.
 
 Scope (`fleet_supported`): kinds 'posorn', 'joint', 'point', 'posorn_time',
 'joint_time' at nb_deriv 1 and 2, on a chain robot with or without an
@@ -49,12 +54,14 @@ The host's work is in spans (`utils/compilemeter.py`): `fleet.iteration`,
 `fleet.backward`, `fleet.line_search`, `fleet.rollout`, `stage_terms`; each
 host read of a loop or trial guard is a `sync` (`host_read`).
 """
+import functools
 import math
 
 import numpy as np
 import torch
 
 from ilqr_planner_torch.models.planar import FD_STEP
+from ilqr_planner_torch.ops.cuda_kernels import kp_cost as kpc
 from ilqr_planner_torch.ops.cuda_kernels.limit_penalty import (limit_arrays,
                                                                limit_cost)
 from ilqr_planner_torch.ops.cuda_kernels.rollout_time1 import rollout_time1
@@ -238,6 +245,10 @@ class _Consts:
         self.kp_steps = tuple(steps)
         self.kp_at = {k: [(i, d) for i, sc in enumerate(self.subs)
                           for d in sc.kp if d["k"] == k] for k in steps}
+        # the cost-only keypoint terms run in one `kp_cost` launch on the
+        # card where the kernel covers the spec (`_kp_cost`)
+        self.kp_table = (kpc.kp_table(self, functools.partial(_kp_cost_ops, self))
+                         if kpc.covers(self) else None)
 
 
 # ---------------------------------------------------------------------------
@@ -661,20 +672,35 @@ def _limit_cost_full(cc: _Consts, X, Xd=None, alpha=0.0):
 # closed-loop rollout and the static keypoint-step costs
 # ---------------------------------------------------------------------------
 
-@spanned("stage_terms")
-def _static_step_costs(cc: _Consts, X, U, cost, kpa=None):
-    """Add the keypoint-residual and control-penalty costs at the keypoint
-    steps to `cost` ([H, n, B], [H-1, m, B] -> [B]). The control penalty
-    enters the cost value only at each system's keypoint steps, with that
-    system's Rt."""
+def _kp_cost_ops(cc: _Consts, X, U, cost, Xd=None, Ud=None, alpha=0.0,
+                 kpa=None):
+    """The keypoint-step costs in tensor ops, the twin of `kp_cost`: add to
+    `cost` [B], at each keypoint step, each system's control penalty
+    (k < H-1; that system's Rt) and then the keypoint residuals' e^T P e,
+    of X [H, n, B] and U [H-1, m, B] or of the affine trial X + alpha Xd,
+    U + alpha Ud."""
     for k in cc.kp_steps:
         if k < cc.H - 1:
+            uk = U[k] if Ud is None else U[k] + alpha * Ud[k]
             for i_sub, _ in cc.kp_at[k]:
-                Rt = cc.subs[i_sub].Rt[:, None]
-                cost = cost + (Rt * U[k] * U[k]).sum(0)
-        kc, _, _ = _kp_terms_at(cc, k, X[k], False, kpa)
+                cost = cost + (cc.subs[i_sub].Rt[:, None] * uk * uk).sum(0)
+        xk = X[k] if Xd is None else X[k] + alpha * Xd[k]
+        kc, _, _ = _kp_terms_at(cc, k, xk, False, kpa)
         cost = cost + kc
     return cost
+
+
+@spanned("stage_terms")
+def _kp_cost(cc: _Consts, X, U, cost, Xd=None, Ud=None, alpha=0.0, kpa=None):
+    """`cost` [B] plus the keypoint-residual and control-penalty costs at
+    the keypoint steps (the control penalty enters the cost value only at
+    each system's keypoint steps, with that system's Rt), of a trajectory
+    or of an affine trial (read from its base and direction): `kp_cost`
+    where the kernel covers the spec (one launch for CUDA tensors, its twin
+    `_kp_cost_ops` on the CPU), else the tensor ops."""
+    if cc.kp_table is not None:
+        return kpc.kp_cost(X, U, cost, Xd, Ud, alpha, table=cc.kp_table)
+    return _kp_cost_ops(cc, X, U, cost, Xd, Ud, alpha, kpa)
 
 
 @spanned("fleet.rollout")
@@ -712,7 +738,7 @@ def _rollout(cc: _Consts, alpha, Ks, ds, Xref, Uref, x0, kpa=None):
             else:
                 x = x + dt * u
             X[k + 1], U[k], du2[k] = x, u, (du * du).sum(0)
-    cost = _static_step_costs(cc, X, U, _limit_cost_full(cc, X), kpa)
+    cost = _kp_cost(cc, X, U, _limit_cost_full(cc, X), kpa=kpa)
     return X, U, cost, torch.sqrt(du2).sum(0)
 
 
@@ -902,17 +928,10 @@ def _run_trials_affine(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0,
     floor-out; the walk stops once every lane has accepted. Inactive lanes
     start as accepted. -> (Xn, Un, cost, sum ||du||, alpha, trials run)."""
     Xb, Xd, Ub, Ud, qa, qb, qc = _affine_family(cc, Ks, ds, X, U, x0)
-    H = cc.H
 
     def trial(a):
-        cost = _limit_cost_full(cc, Xb, Xd, a)
-        for k in cc.kp_steps:
-            if k < H - 1:
-                uk = Ub[k] + a * Ud[k]
-                for i_sub, _ in cc.kp_at[k]:
-                    cost = cost + (cc.subs[i_sub].Rt[:, None] * uk * uk).sum(0)
-            kc, _, _ = _kp_terms_at(cc, k, Xb[k] + a * Xd[k], False, kpa)
-            cost = cost + kc
+        cost = _kp_cost(cc, Xb, Ub, _limit_cost_full(cc, Xb, Xd, a), Xd, Ud,
+                        a, kpa)
         # ||du_k(alpha)||^2 >= 0 exactly; clamp the rounding tail
         du = torch.sqrt(torch.clamp(qa + (2.0 * a) * qb + (a * a) * qc,
                                     min=0.0)).sum(0)

@@ -22,7 +22,7 @@ The port's names:
     fleet.rollout     `fleet._rollout` (the initial rollout and each
                       time-optimal trial);
     stage_terms       `fleet._kp_terms_at`, `_limit_arrays`,
-                      `_limit_cost_full`, `_static_step_costs`, `_fx_traj`;
+                      `_limit_cost_full`, `_kp_cost`, `_fx_traj`;
     sync              one host read of a device value (`host_read`).
 
 `SYNCS` counts the host reads of device values the solvers make
