@@ -12,21 +12,22 @@ and direction without forming it). The kernel (`csrc/kp_cost.cu`) runs one
 thread a lane, the chain walk, the residual and the sum in registers; it
 covers the first-order posorn, posorn_time and point systems on one serial
 chain, with or without object frames, whose keypoint constants are not
-bound to lanes (`covers`): every other spec stays on the tensor path. The
-table carries the twin, which needs the fleet's kinematics: the wrapper runs
-it for CPU tensors and the kernel for CUDA tensors, and never falls back
-from one to the other.
+bound to lanes: the fleet packs the table of such a spec
+(`solvers/fleet.py::_kp_table`) and chooses between the kernel and its
+tensor path (`_kp_cost`). This module keeps what the CUDA source defines:
+the table's layout and flags, the block and the launch. The wrapper takes
+CUDA tensors only, and raises on anything else it cannot take.
 """
 
 import ctypes
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import torch
 
 from ilqr_planner_torch.ops.cuda_kernels import nvcc_build
 
-__all__ = ["kp_cost", "kp_table", "covers", "KpTable", "build", "smem_bytes",
-           "LAUNCHES", "THREADS", "KINDS"]
+__all__ = ["kp_cost", "KpTable", "build", "smem_bytes", "LAUNCHES", "THREADS",
+           "KINDS"]
 
 # Kernel launches so far: one per call of `kp_cost`.
 LAUNCHES = 0
@@ -47,92 +48,23 @@ SOURCE = nvcc_build.CSRC / "kp_cost.cu"
 
 
 class KpTable(NamedTuple):
-    """The kernel's constants: `vals` [nvals] in the spec's dtype (joints,
-    tip, frames, Rt, keypoints), `meta` [nmeta] int32 (counts, flags,
-    offsets into vals), on the spec's device; the trajectory's H, n, m; the
-    plain twin, twin(X, U, cost, Xd, Ud, alpha) -> [B]."""
+    """The kernel's constants: `vals` [nvals] in the spec's dtype, `meta`
+    [nmeta] int32, on the spec's device; the trajectory's H, n, m.
+
+    vals: per joint origin_pos, origin_rot, axis, K, K^2 (JOINT values),
+    the tip's pos and rot; per system its frame (R_f^T, p_f) if any and its
+    Rt; per keypoint mu, P and, for the posorn kinds, E [3, 4] then the unit
+    target quaternion, then the dead zones' radius and thresholds. meta
+    (offsets into vals): nj, nsys, nsteps, nkp (HEADER); prismatic [nj]; per
+    system (kind, time, frame offset or -1, Rt offset) (SYS); per keypoint
+    step in order (k, first keypoint, keypoints) (STEP); per keypoint in the
+    step's order (system, nq, mu offset, nt, P offset, quaternion offset or
+    -1, dead-zone offset, flags) (KP)."""
     vals: torch.Tensor
     meta: torch.Tensor
     H: int
     n: int
     m: int
-    twin: Callable
-
-
-def covers(cc) -> bool:
-    """True where the kernel evaluates the fleet's cost-only keypoint
-    terms: first order, every system a posorn, posorn_time or point system
-    on one serial (non-planar) chain, keypoint constants not bound to lanes
-    (no per-scenario overrides). `cc`: the fleet's `_Consts`."""
-    return (cc.nb_deriv == 1 and not cc.ov_names and bool(cc.kp_steps)
-            and all(sc.kind in KINDS and sc.chain_key is not None
-                    and not sc.planar for sc in cc.subs)
-            and len({sc.chain_key for sc in cc.subs}) == 1)
-
-
-def kp_table(cc, twin) -> KpTable:
-    """The table of a covered `_Consts` (`covers`) with its plain `twin`:
-    its tensors copied as the tensor path holds them, so the kernel reads
-    the same values.
-
-    vals: per joint origin_pos, origin_rot, axis, K, K^2 (33 values), the
-    tip's pos and rot; per system its frame (R_f^T, p_f) if any and its Rt;
-    per keypoint mu, P and, for the posorn kinds, E [3, 4] then the unit
-    target quaternion, then the dead zones' radius and thresholds. meta: nj,
-    nsys, nsteps, nkp; prismatic [nj]; per system (kind, time, frame offset
-    or -1, Rt offset); per keypoint step in order (k, first keypoint,
-    keypoints); per keypoint in the step's order (system, nq, mu offset, nt,
-    P offset, quaternion offset or -1, dead-zone offset, flags)."""
-    if not covers(cc):
-        raise ValueError("kp_cost: the spec is outside the kernel's coverage")
-    rep = cc.chain_of[0]
-    parts = []
-    size = 0
-
-    def put(t):
-        nonlocal size
-        t = t.reshape(-1)
-        parts.append(t)
-        size += t.numel()
-        return size - t.numel()
-
-    for i in range(len(rep.prismatic)):
-        for t in (rep.origin_pos[i], rep.origin_rot[i], rep.axis[i],
-                  rep.skew[i], rep.skew2[i]):
-            put(t)
-    put(rep.tip_pos)
-    put(rep.tip_rot)
-    sys_rows = []
-    for sc in cc.subs:
-        frame = -1 if sc.frame is None else put(sc.frame[0])
-        if sc.frame is not None:
-            put(sc.frame[1])
-        sys_rows.append([KINDS[sc.kind], int(sc.time), frame, put(sc.Rt)])
-    step_rows, kp_rows = [], []
-    for k in cc.kp_steps:
-        step_rows.append([k, len(kp_rows), len(cc.kp_at[k])])
-        for i, kp in cc.kp_at[k]:
-            sc = cc.subs[i]
-            mu = put(kp["mu"])
-            prec = put(kp["prec"])
-            quat, flags = -1, 0
-            if sc.kind.startswith("posorn"):
-                quat = put(kp["E"])
-                put(kp["q"][1])
-                flags |= TARGET_ZERO if kp["q"][2] else 0
-            radius, thresh = kp["radius"], kp["thresh"]
-            zone = put(torch.tensor([radius, *thresh], dtype=cc.dtype,
-                                    device=cc.device))
-            flags |= RADIUS if radius != 0.0 else 0
-            flags |= THRESH if any(v != 0.0 for v in thresh) else 0
-            kp_rows.append([i, sc.nq, mu, sc.nt, prec, quat, zone, flags])
-    meta = ([len(rep.prismatic), len(cc.subs), len(step_rows), len(kp_rows)]
-            + [int(v) for v in rep.prismatic]
-            + [v for r in sys_rows + step_rows + kp_rows for v in r])
-    return KpTable(
-        vals=torch.cat(parts),
-        meta=torch.tensor(meta, dtype=torch.int32, device=cc.device),
-        H=cc.H, n=cc.n, m=cc.m, twin=twin)
 
 
 def _entries():
@@ -161,6 +93,8 @@ def smem_bytes(table: KpTable) -> int:
 
 def _check(X, U, cost, Xd, Ud, table):
     """Raise on anything the kernel does not take. Needs no card."""
+    if X.device.type != "cuda":
+        raise ValueError(f"kp_cost kernel takes CUDA tensors, got {X.device}")
     if X.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kp_cost kernel takes float32/float64, got {X.dtype}")
     H, n, m = table.H, table.n, table.m
@@ -203,11 +137,9 @@ def _lib():
 def kp_cost(X, U, cost, Xd=None, Ud=None, alpha=0.0, *, table: KpTable):
     """cost [B] plus the keypoint and control costs of X [H, n, B] and
     U [H-1, m, B], or of the affine trial X + alpha Xd, U + alpha Ud (Xd, Ud
-    shaped as X, U). CPU tensors run the table's twin; CUDA tensors launch
-    the kernel on the current stream (every array with its [., B] rows
-    contiguous, any step stride; cost contiguous). Returns a new tensor."""
-    if X.device.type == "cpu":
-        return table.twin(X, U, cost, Xd, Ud, alpha)
+    shaped as X, U), CUDA tensors: one launch on the current stream (every
+    array with its [., B] rows contiguous, any step stride; cost
+    contiguous). Returns a new tensor."""
     _check(X, U, cost, Xd, Ud, table)
     B = X.shape[2]
     out = torch.empty_like(cost)

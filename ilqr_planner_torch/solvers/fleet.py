@@ -8,7 +8,8 @@ JAX package's trace-time lists of [B] vectors. Multiplying or adding the
 exact zeros and ones that the JAX lists folded away leaves every value as it
 was, so the only numerical difference is the order of the sums (~1 ulp).
 
-Per iteration: the backward sweep (`_backward`), then the line search over
+Both solves run one lane loop (`_lane_loop`) around their own body. Per
+iteration: the backward sweep (`_backward`), then one walk (`_walk`) over
 alpha = 1, 1/2, ..., 2^-10 with early exit once every lane has accepted.
 The sweep runs in a whole-sweep CUDA kernel on the card (its plain twin on
 the CPU) wherever the JAX package runs a Pallas kernel:
@@ -17,23 +18,24 @@ the CPU) wherever the JAX package runs a Pallas kernel:
 the time-optimal first-order kind; every other sweep (the time-optimal
 double integrator, AL terms that do not fold) is the generic per-step sweep
 (`ops/step_terms.py`), in plain tensor ops as the JAX package runs it in
-XLA. The LTI kinds walk the line search on the affine trial family
-(`_affine_family`, `_run_trials_affine`: one pass over the horizon, then
-scan-free trials); the time-optimal kinds, whose B depends on u, re-roll
-each trial (`_run_trials`): on the card every closed-loop rollout of the
-first-order kind, the initial one included, is one launch of
+XLA. The walk's trial (`_pick_ls_mode` chooses): the LTI kinds' affine
+family (`_affine_family`, `_run_trials_affine`: one pass over the horizon,
+then scan-free trials); the time-optimal kinds, whose B depends on u,
+re-roll each trial (`_run_trials`): on the card every closed-loop rollout of
+the first-order kind, the initial one included, is one launch of
 `ops/cuda_kernels/rollout_time1.py`, and the double integrator's is a loop
 of tensor ops. The joint-limit penalty over whole trajectories (each
 trial's cost, read from the affine family's base and direction; the
 sweep's streamed stage rows) is one launch of
-`ops/cuda_kernels/limit_penalty.py` on the card; the keypoint-step costs
-of a trial or rollout (`_kp_cost`: the chain walk, residuals, e^T P e and
-control penalty at every keypoint step) are one launch of
-`ops/cuda_kernels/kp_cost.py` on the card where that kernel covers the spec
-(first-order posorn, posorn_time and point systems on one serial chain, no
-keypoint overrides), tensor ops elsewhere. Lanes freeze one by one (early
-stop alpha sqrt(sum ||du||) < 1e-3 and cost < 1e-3, or the iteration
-budget); the loop ends when every lane is frozen.
+`ops/cuda_kernels/limit_penalty.py` on the card, from the table
+`_limit_table` packs; the keypoint-step costs of a trial or rollout are one
+launch of `ops/cuda_kernels/kp_cost.py` on the card where that kernel
+covers the spec (first-order posorn, posorn_time and point systems on one
+serial chain, no keypoint overrides: `_kp_table` packs its table), tensor
+ops (`_kp_cost_ops`) elsewhere and on the CPU; `_kp_cost` is the one place
+that chooses. Lanes freeze one by one (early stop alpha sqrt(sum ||du||) <
+1e-3 and cost < 1e-3, or the iteration budget); the loop ends when every
+lane is frozen.
 
 Scope (`fleet_supported`): kinds 'posorn', 'joint', 'point', 'posorn_time',
 'joint_time' at nb_deriv 1 and 2, on a chain robot with or without an
@@ -54,7 +56,6 @@ The host's work is in spans (`utils/compilemeter.py`): `fleet.iteration`,
 `fleet.backward`, `fleet.line_search`, `fleet.rollout`, `stage_terms`; each
 host read of a loop or trial guard is a `sync` (`host_read`).
 """
-import functools
 import math
 
 import numpy as np
@@ -245,10 +246,7 @@ class _Consts:
         self.kp_steps = tuple(steps)
         self.kp_at = {k: [(i, d) for i, sc in enumerate(self.subs)
                           for d in sc.kp if d["k"] == k] for k in steps}
-        # the cost-only keypoint terms run in one `kp_cost` launch on the
-        # card where the kernel covers the spec (`_kp_cost`)
-        self.kp_table = (kpc.kp_table(self, functools.partial(_kp_cost_ops, self))
-                         if kpc.covers(self) else None)
+        self.kp_table = _kp_table(self)
 
 
 # ---------------------------------------------------------------------------
@@ -648,6 +646,68 @@ def _limit_table(subs):
     return torch.stack(rows) if rows else None
 
 
+def _kp_table(cc: _Consts):
+    """The `kp_cost` kernel's table (`kp_cost.KpTable`) of the cost-only
+    keypoint terms, its tensors copied as the tensor path holds them so that
+    the kernel reads the same values; None where the kernel does not cover
+    the spec. It covers first order, every system a posorn, posorn_time or
+    point system on one serial (non-planar) chain, keypoint constants not
+    bound to lanes (no per-scenario overrides)."""
+    if not (cc.nb_deriv == 1 and not cc.ov_names and cc.kp_steps
+            and all(sc.kind in kpc.KINDS and sc.chain_key is not None
+                    and not sc.planar for sc in cc.subs)
+            and len({sc.chain_key for sc in cc.subs}) == 1):
+        return None
+    rep = cc.chain_of[0]
+    parts = []
+    size = 0
+
+    def put(t):
+        nonlocal size
+        t = t.reshape(-1)
+        parts.append(t)
+        size += t.numel()
+        return size - t.numel()
+
+    for i in range(len(rep.prismatic)):
+        for t in (rep.origin_pos[i], rep.origin_rot[i], rep.axis[i],
+                  rep.skew[i], rep.skew2[i]):
+            put(t)
+    put(rep.tip_pos)
+    put(rep.tip_rot)
+    sys_rows = []
+    for sc in cc.subs:
+        frame = -1 if sc.frame is None else put(sc.frame[0])
+        if sc.frame is not None:
+            put(sc.frame[1])
+        sys_rows.append([kpc.KINDS[sc.kind], int(sc.time), frame, put(sc.Rt)])
+    step_rows, kp_rows = [], []
+    for k in cc.kp_steps:
+        step_rows.append([k, len(kp_rows), len(cc.kp_at[k])])
+        for i, kp in cc.kp_at[k]:
+            sc = cc.subs[i]
+            mu = put(kp["mu"])
+            prec = put(kp["prec"])
+            quat, flags = -1, 0
+            if sc.kind.startswith("posorn"):
+                quat = put(kp["E"])
+                put(kp["q"][1])
+                flags |= kpc.TARGET_ZERO if kp["q"][2] else 0
+            radius, thresh = kp["radius"], kp["thresh"]
+            zone = put(torch.tensor([radius, *thresh], dtype=cc.dtype,
+                                    device=cc.device))
+            flags |= kpc.RADIUS if radius != 0.0 else 0
+            flags |= kpc.THRESH if any(v != 0.0 for v in thresh) else 0
+            kp_rows.append([i, sc.nq, mu, sc.nt, prec, quat, zone, flags])
+    meta = ([len(rep.prismatic), len(cc.subs), len(step_rows), len(kp_rows)]
+            + [int(v) for v in rep.prismatic]
+            + [v for r in sys_rows + step_rows + kp_rows for v in r])
+    return kpc.KpTable(
+        vals=torch.cat(parts),
+        meta=torch.tensor(meta, dtype=torch.int32, device=cc.device),
+        H=cc.H, n=cc.n, m=cc.m)
+
+
 @spanned("stage_terms")
 def _limit_arrays(cc: _Consts, X):
     """Negated limit gradient and diagonal Hessian over [H, n, B]:
@@ -674,7 +734,7 @@ def _limit_cost_full(cc: _Consts, X, Xd=None, alpha=0.0):
 
 def _kp_cost_ops(cc: _Consts, X, U, cost, Xd=None, Ud=None, alpha=0.0,
                  kpa=None):
-    """The keypoint-step costs in tensor ops, the twin of `kp_cost`: add to
+    """The keypoint-step costs in tensor ops, the kernel's twin: add to
     `cost` [B], at each keypoint step, each system's control penalty
     (k < H-1; that system's Rt) and then the keypoint residuals' e^T P e,
     of X [H, n, B] and U [H-1, m, B] or of the affine trial X + alpha Xd,
@@ -695,10 +755,11 @@ def _kp_cost(cc: _Consts, X, U, cost, Xd=None, Ud=None, alpha=0.0, kpa=None):
     """`cost` [B] plus the keypoint-residual and control-penalty costs at
     the keypoint steps (the control penalty enters the cost value only at
     each system's keypoint steps, with that system's Rt), of a trajectory
-    or of an affine trial (read from its base and direction): `kp_cost`
-    where the kernel covers the spec (one launch for CUDA tensors, its twin
-    `_kp_cost_ops` on the CPU), else the tensor ops."""
-    if cc.kp_table is not None:
+    or of an affine trial (read from its base and direction). The one
+    place that chooses: one `kp_cost` launch where the kernel covers the
+    spec (`cc.kp_table`) and X is a CUDA tensor, else the tensor ops
+    `_kp_cost_ops` (its twin)."""
+    if cc.kp_table is not None and X.is_cuda:
         return kpc.kp_cost(X, U, cost, Xd, Ud, alpha, table=cc.kp_table)
     return _kp_cost_ops(cc, X, U, cost, Xd, Ud, alpha, kpa)
 
@@ -870,10 +931,11 @@ def _check_auto(**knobs):
             raise ValueError(f"{name} must be 'auto' in the port, got {value!r}")
 
 
-def _pick_ls_mode(cc: _Consts, ls: str) -> bool:
-    """The line-search knob -> use the affine family. 'auto': affine for
-    the LTI kinds, re-rollouts for the time-optimal kinds; 'affine' on a
-    time-optimal kind raises (its trials are not affine in alpha)."""
+def _pick_ls_mode(cc: _Consts, ls: str):
+    """The line-search knob -> the trial family's walk: `_run_trials_affine`
+    or `_run_trials`. 'auto': the affine family for the LTI kinds,
+    re-rollouts for the time-optimal kinds; 'affine' on a time-optimal kind
+    raises (its trials are not affine in alpha)."""
     if ls not in ("auto", "affine", "scan"):
         raise ValueError(f"ls must be auto/affine/scan, got {ls!r}")
     if ls == "affine" and cc.time:
@@ -881,7 +943,9 @@ def _pick_ls_mode(cc: _Consts, ls: str) -> bool:
             "ls='affine' requires LTI dynamics; the sqrt-dt time-optimal "
             "kinds have a control-dependent B, so trial trajectories are not "
             "affine in alpha")
-    return ls == "affine" or (ls == "auto" and not cc.time)
+    if ls == "affine" or (ls == "auto" and not cc.time):
+        return _run_trials_affine
+    return _run_trials
 
 
 def _affine_family(cc: _Consts, Ks, ds, Xref, Uref, x0):
@@ -920,13 +984,35 @@ def _affine_family(cc: _Consts, Ks, ds, Xref, Uref, x0):
             (dub * dud).sum(1), (dud * dud).sum(1))
 
 
+def _walk(a_sched, cost0, inactive, trial, carry=()):
+    """The backtracking walk of both trial families over alpha = 1, 1/2,
+    ..., 2^-10. `trial(a)` -> (*carried, cost [B], sum ||du|| [B]); `carry`
+    holds the carried values' initial ones. A lane takes the first alpha
+    whose cost passes (below cost0, not NaN), the last trial on floor-out;
+    inactive lanes start as accepted, and the walk stops once every lane
+    has accepted. -> (*carried, cost, sum ||du||, alpha, trials run)."""
+    accepted = inactive.clone()
+    best = (*carry, cost0, torch.zeros_like(cost0), torch.ones_like(cost0))
+    n_trials = 0
+    for a in a_sched:
+        if host_read(accepted.all()):
+            break
+        *rest, ct, dut = trial(a)
+        n_trials += 1
+        ok = (ct < cost0) & ~torch.isnan(ct)
+        take = ~accepted
+        best = tuple(torch.where(take, new, old) for old, new in
+                     zip(best, (*rest, ct, dut, torch.full_like(ct, a))))
+        accepted = accepted | ok
+    return best + (n_trials,)
+
+
 @spanned("fleet.line_search")
 def _run_trials_affine(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0,
                        inactive, kpa=None):
-    """Backtracking over alpha = 1, 1/2, ..., 2^-10 on the affine family:
-    the first passing alpha is adopted per lane, the last trial on
-    floor-out; the walk stops once every lane has accepted. Inactive lanes
-    start as accepted. -> (Xn, Un, cost, sum ||du||, alpha, trials run)."""
+    """The walk on the affine family: a trial's cost is read from the
+    family's base and direction, and the accepted trajectories are formed
+    once after the walk. -> (Xn, Un, cost, sum ||du||, alpha, trials run)."""
     Xb, Xd, Ub, Ud, qa, qb, qc = _affine_family(cc, Ks, ds, X, U, x0)
 
     def trial(a):
@@ -937,49 +1023,19 @@ def _run_trials_affine(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0,
                                     min=0.0)).sum(0)
         return cost, du
 
-    accepted = inactive.clone()
-    cost = cost0
-    du_acc = torch.zeros_like(cost0)
-    alpha = torch.ones_like(cost0)
-    n_trials = 0
-    for a in a_sched:
-        if host_read(accepted.all()):
-            break
-        ct, dut = trial(a)
-        n_trials += 1
-        ok = (ct < cost0) & ~torch.isnan(ct)
-        take = ~accepted
-        cost = torch.where(take, ct, cost)
-        du_acc = torch.where(take, dut, du_acc)
-        alpha = torch.where(take, torch.full_like(alpha, a), alpha)
-        accepted = accepted | ok
-    Xn = Xb + alpha * Xd
-    Un = Ub + alpha * Ud
-    return Xn, Un, cost, du_acc, alpha, n_trials
+    cost, du, alpha, n_trials = _walk(a_sched, cost0, inactive, trial)
+    return Xb + alpha * Xd, Ub + alpha * Ud, cost, du, alpha, n_trials
 
 
 @spanned("fleet.line_search")
 def _run_trials(cc: _Consts, a_sched, X, U, cost0, Ks, ds, x0, inactive,
                 kpa=None):
-    """Backtracking with one closed-loop rollout (`_rollout`) a trial, same
-    decisions as `_run_trials_affine` (first passing alpha per lane, the
-    last trial on floor-out, early exit once every lane has accepted); the
-    time-optimal kind's trial is one `rollout_time1` launch on the card.
+    """The walk with one closed-loop rollout (`_rollout`) a trial, its
+    trajectories carried; the time-optimal first-order kind's trial is one
+    `rollout_time1` launch on the card.
     -> (Xn, Un, cost, sum ||du||, alpha, trials run)."""
-    accepted = inactive.clone()
-    best = (X, U, cost0, torch.zeros_like(cost0), torch.ones_like(cost0))
-    n_trials = 0
-    for a in a_sched:
-        if host_read(accepted.all()):
-            break
-        Xt, Ut, ct, dut = _rollout(cc, a, Ks, ds, X, U, x0, kpa)
-        n_trials += 1
-        ok = (ct < cost0) & ~torch.isnan(ct)
-        take = ~accepted
-        best = tuple(torch.where(take, new, old) for old, new in
-                     zip(best, (Xt, Ut, ct, dut, torch.full_like(ct, a))))
-        accepted = accepted | ok
-    return best + (n_trials,)
+    return _walk(a_sched, cost0, inactive,
+                 lambda a: _rollout(cc, a, Ks, ds, X, U, x0, kpa), (X, U))
 
 
 # ---------------------------------------------------------------------------
@@ -1013,6 +1069,41 @@ def _fx_traj(cc: _Consts, X):
     return fx.reshape(fx.shape[0], H, B).permute(2, 1, 0)
 
 
+def _lane_loop(cc: _Consts, x0s, U0s, nb_iter: int, init, step, kpa=None):
+    """The lane loop of both fleet solves: x0s [B, n], U0s [B, H-1, m] laid
+    out lanes last, the initial rollout with zero gains, then iterations
+    while some lane is active (not done, under nb_iter iterations).
+    `lanes` holds x0, X, U, cost, the zero Ks and ds, it, done and what
+    `init(lanes)` adds; `step(lanes, active)` -> (new values, trials run),
+    which replace the active lanes' own, with it + 1 (an entry the step sets
+    on `lanes` itself stays as set). -> the final `lanes`."""
+    global TRIALS
+    n, m, H = cc.n, cc.m, cc.H
+    x0 = torch.as_tensor(x0s, dtype=cc.dtype, device=cc.device).T.contiguous()
+    U0 = torch.as_tensor(U0s, dtype=cc.dtype,
+                         device=cc.device).permute(1, 2, 0).contiguous()
+    B = x0.shape[-1]
+    Ks = x0.new_zeros((H - 1, m, n, B))
+    ds = x0.new_zeros((H - 1, m, B))
+    X, U, cost, _ = _rollout(cc, 0.0, Ks, ds, x0.new_zeros((H, n, B)), U0, x0,
+                             kpa)
+    lanes = {"x0": x0, "X": X, "U": U, "cost": cost, "Ks": Ks, "ds": ds,
+             "it": torch.zeros(B, dtype=torch.int32, device=cc.device),
+             "done": torch.zeros(B, dtype=torch.bool, device=cc.device)}
+    lanes.update(init(lanes))
+    while True:
+        with span("fleet.iteration"):
+            active = ~lanes["done"] & (lanes["it"] < nb_iter)
+            if not host_read(active.any()):
+                break
+            new, n_trials = step(lanes, active)
+            TRIALS += n_trials
+            new["it"] = lanes["it"] + 1
+            for name, v in new.items():
+                lanes[name] = torch.where(active, v, lanes[name])
+    return lanes
+
+
 def make_fleet_solver(spec: Spec, nb_iter: int, line_search: bool = True,
                       early_stop: bool = True, overrides=(),
                       backward: str = "auto", ls: str = "auto",
@@ -1035,65 +1126,48 @@ def make_fleet_solver(spec: Spec, nb_iter: int, line_search: bool = True,
     """
     _check_auto(backward=backward, rollout=rollout)
     cc = _Consts(spec, overrides)
-    use_affine = _pick_ls_mode(cc, ls)
-    run_trials = _run_trials_affine if use_affine else _run_trials
-    n, m, H = cc.n, cc.m, cc.H
+    run_trials = _pick_ls_mode(cc, ls)
     a_sched = _alpha_schedule(line_search)
 
     def solve(x0s, U0s, ov=None):
-        global TRIALS
-        x0 = torch.as_tensor(x0s, dtype=cc.dtype, device=cc.device).T.contiguous()
-        U0 = torch.as_tensor(U0s, dtype=cc.dtype,
-                             device=cc.device).permute(1, 2, 0).contiguous()
         kpa = _bind_ov(cc, ov)
-        B = x0.shape[-1]
-        Ks = x0.new_zeros((H - 1, m, n, B))
-        ds = x0.new_zeros((H - 1, m, B))
-        X, U, cost, _ = _rollout(cc, 0.0, Ks, ds, x0.new_zeros((H, n, B)), U0,
-                                 x0, kpa)
-        it = torch.zeros(B, dtype=torch.int32, device=cc.device)
-        done = torch.zeros(B, dtype=torch.bool, device=cc.device)
-        alpha = torch.ones_like(cost)
-        if record:
-            rec_cost = cost.new_full((nb_iter, B), float("nan"))
-            rec_alpha = rec_cost.clone()
-            rows = torch.arange(nb_iter, device=cc.device)[:, None]
-        while True:
-            with span("fleet.iteration"):
-                active = ~done & (it < nb_iter)
-                if not host_read(active.any()):
-                    break
-                Ks_n, ds_n = _backward(cc, X, U, kpa)
-                Xn, Un, costn, du_acc, alpha_n, n_trials = run_trials(
-                    cc, a_sched, X, U, cost, Ks_n, ds_n, x0, ~active, kpa)
-                TRIALS += n_trials
-                new_done = done
-                if early_stop:
-                    new_done = done | ((alpha_n * torch.sqrt(du_acc) < 1e-3)
-                                       & (costn < 1e-3))
-                if record:
-                    # each active lane's row at its own iteration index
-                    row = (rows == it[None]) & active[None]
-                    rec_cost = torch.where(row, costn[None], rec_cost)
-                    rec_alpha = torch.where(row, alpha_n[None], rec_alpha)
-                X = torch.where(active, Xn, X)
-                U = torch.where(active, Un, U)
-                cost = torch.where(active, costn, cost)
-                Ks = torch.where(active, Ks_n, Ks)
-                ds = torch.where(active, ds_n, ds)
-                it = torch.where(active, it + 1, it)
-                done = torch.where(active, new_done, done)
-                alpha = torch.where(active, alpha_n, alpha)
+
+        def init(s):
+            extra = {"alpha": torch.ones_like(s["cost"])}
+            if record:
+                extra["rec_cost"] = s["cost"].new_full(
+                    (nb_iter, s["cost"].shape[-1]), float("nan"))
+                extra["rec_alpha"] = extra["rec_cost"].clone()
+                extra["rows"] = torch.arange(nb_iter, device=cc.device)[:, None]
+            return extra
+
+        def step(s, active):
+            Ks, ds = _backward(cc, s["X"], s["U"], kpa)
+            X, U, cost, du, alpha, n_trials = run_trials(
+                cc, a_sched, s["X"], s["U"], s["cost"], Ks, ds, s["x0"],
+                ~active, kpa)
+            done = s["done"]
+            if early_stop:
+                done = done | ((alpha * torch.sqrt(du) < 1e-3) & (cost < 1e-3))
+            if record:
+                # each active lane's row at its own iteration index
+                row = (s["rows"] == s["it"][None]) & active[None]
+                s["rec_cost"] = torch.where(row, cost[None], s["rec_cost"])
+                s["rec_alpha"] = torch.where(row, alpha[None], s["rec_alpha"])
+            return {"X": X, "U": U, "cost": cost, "Ks": Ks, "ds": ds,
+                    "done": done, "alpha": alpha}, n_trials
+
+        s = _lane_loop(cc, x0s, U0s, nb_iter, init, step, kpa)
         return ILQRResult(
-            X=X.permute(2, 0, 1),
-            fX=_fx_traj(cc, X),
-            U=U.permute(2, 0, 1),
-            Ks=Ks.permute(3, 0, 1, 2),
-            ds=(ds * alpha).permute(2, 0, 1),
-            cost=cost,
-            iterations=it,
-            alpha=alpha,
-            progress=({"cost": rec_cost.T, "alpha": rec_alpha.T}
+            X=s["X"].permute(2, 0, 1),
+            fX=_fx_traj(cc, s["X"]),
+            U=s["U"].permute(2, 0, 1),
+            Ks=s["Ks"].permute(3, 0, 1, 2),
+            ds=(s["ds"] * s["alpha"]).permute(2, 0, 1),
+            cost=s["cost"],
+            iterations=s["it"],
+            alpha=s["alpha"],
+            progress=({"cost": s["rec_cost"].T, "alpha": s["rec_alpha"].T}
                       if record else None),
         )
 
@@ -1140,7 +1214,7 @@ def make_fleet_solver_al(spec: Spec, constraints: Constraints, nb_iter: int,
     backward as in `make_fleet_solver`."""
     _check_auto(backward=backward)
     cc = _Consts(spec)
-    run_trials = _run_trials_affine if _pick_ls_mode(cc, ls) else _run_trials
+    run_trials = _pick_ls_mode(cc, ls)
     n, m, H = cc.n, cc.m, cc.H
     a_sched = _alpha_schedule(line_search)
     plan = _al_plan(constraints, n, np.dtype(str(cc.dtype).removeprefix("torch.")))
@@ -1168,53 +1242,38 @@ def make_fleet_solver_al(spec: Spec, constraints: Constraints, nb_iter: int,
         return pen * torch.where(inactive, 0.0, 1.0).to(X.dtype), g
 
     def solve(x0s, U0s, lam0):
-        global TRIALS
-        x0 = torch.as_tensor(x0s, dtype=cc.dtype, device=cc.device).T.contiguous()
-        U0 = torch.as_tensor(U0s, dtype=cc.dtype,
-                             device=cc.device).permute(1, 2, 0).contiguous()
-        B = x0.shape[-1]
-        lam = torch.as_tensor(lam0, dtype=cc.dtype, device=cc.device)
-        if lam.dim() == 3:                    # per-scenario duals
-            lam = lam.permute(1, 2, 0)
-        else:
-            lam = lam.expand(H - 1, plan["nc"])[..., None]
-        lam = lam.expand(H - 1, plan["nc"], B).contiguous()
-        pen = torch.full((B,), penalty, dtype=cc.dtype, device=cc.device)
-        X, U, cost, _ = _rollout(cc, 0.0, x0.new_zeros((H - 1, m, n, B)),
-                                 x0.new_zeros((H - 1, m, B)),
-                                 x0.new_zeros((H, n, B)), U0, x0)
-        Is, g = active_sets(X, U, lam, pen)
-        it = torch.zeros(B, dtype=torch.int32, device=cc.device)
-        done = torch.zeros(B, dtype=torch.bool, device=cc.device)
-        while True:
-            with span("fleet.iteration"):
-                active = ~done & (it < nb_iter)
-                if not host_read(active.any()):
-                    break
-                Ks, ds = _backward(cc, X, U, None, dict(al_static, Is=Is, g=g, lam=lam))
-                Xn, Un, costn, du_acc, alpha, n_trials = run_trials(
-                    cc, a_sched, X, U, cost, Ks, ds, x0, ~active)
-                TRIALS += n_trials
-                Isn, gn = active_sets(Xn, Un, lam, pen)
-                update = ((it + 1) % lag_update_step) == 0
-                pen_n = torch.where(update, pen * scaling_factor, pen)
-                lam_n = torch.where(update, torch.clamp_min(lam + pen_n * gn, 0.0),
-                                    lam)
-                new_done = done
-                if early_stop:
-                    new_done = done | (alpha * torch.sqrt(du_acc) < 1e-3)
-                X = torch.where(active, Xn, X)
-                U = torch.where(active, Un, U)
-                Is = torch.where(active, Isn, Is)
-                g = torch.where(active, gn, g)
-                cost = torch.where(active, costn, cost)
-                lam = torch.where(active, lam_n, lam)
-                pen = torch.where(active, pen_n, pen)
-                it = torch.where(active, it + 1, it)
-                done = torch.where(active, new_done, done)
-        return ALILQRResult(X=X.permute(2, 0, 1), fX=_fx_traj(cc, X),
-                            U=U.permute(2, 0, 1),
-                            multipliers=lam.permute(2, 0, 1), cost=cost,
-                            iterations=it)
+        def init(s):
+            B = s["X"].shape[-1]
+            lam = torch.as_tensor(lam0, dtype=cc.dtype, device=cc.device)
+            if lam.dim() == 3:                    # per-scenario duals
+                lam = lam.permute(1, 2, 0)
+            else:
+                lam = lam.expand(H - 1, plan["nc"])[..., None]
+            lam = lam.expand(H - 1, plan["nc"], B).contiguous()
+            pen = torch.full((B,), penalty, dtype=cc.dtype, device=cc.device)
+            Is, g = active_sets(s["X"], s["U"], lam, pen)
+            return {"lam": lam, "pen": pen, "Is": Is, "g": g}
+
+        def step(s, active):
+            Ks, ds = _backward(cc, s["X"], s["U"], None,
+                               dict(al_static, Is=s["Is"], g=s["g"], lam=s["lam"]))
+            X, U, cost, du, alpha, n_trials = run_trials(
+                cc, a_sched, s["X"], s["U"], s["cost"], Ks, ds, s["x0"], ~active)
+            Is, g = active_sets(X, U, s["lam"], s["pen"])
+            update = ((s["it"] + 1) % lag_update_step) == 0
+            pen = torch.where(update, s["pen"] * scaling_factor, s["pen"])
+            lam = torch.where(update, torch.clamp_min(s["lam"] + pen * g, 0.0),
+                              s["lam"])
+            done = s["done"]
+            if early_stop:
+                done = done | (alpha * torch.sqrt(du) < 1e-3)
+            return {"X": X, "U": U, "Is": Is, "g": g, "cost": cost, "lam": lam,
+                    "pen": pen, "done": done}, n_trials
+
+        s = _lane_loop(cc, x0s, U0s, nb_iter, init, step)
+        return ALILQRResult(X=s["X"].permute(2, 0, 1), fX=_fx_traj(cc, s["X"]),
+                            U=s["U"].permute(2, 0, 1),
+                            multipliers=s["lam"].permute(2, 0, 1),
+                            cost=s["cost"], iterations=s["it"])
 
     return solve

@@ -5,7 +5,8 @@
     as text) is named in the header of one `ilqr_planner_torch/csrc/*.cu`
     and has a row in PERF.md's kernel table.
 (b) No module of the port, nor `chip_smoke.py`, imports JAX or the JAX
-    package (an `ast` walk, so comments and strings do not count).
+    package, and no module under `ops/` imports the solvers (an `ast`
+    walk, so comments and strings do not count).
 (c) The launch-geometry helpers of the kernels (each at the 7-DoF arm's
     widths and at 6 and 3 DoF; riccati at each residual width, at the
     sequential specs' 12 and 13, the planar 2 and its widest; the limit
@@ -124,20 +125,39 @@ PORT_SOURCES = sorted(str(p.relative_to(REPO))
                       ) + ["chip_smoke.py"]
 
 
+def _imports(rel):
+    """The modules a source imports: each `import a.b` as "a.b", each
+    `from a import b, c` as "a.b" and "a.c"; a relative import resolved
+    against the source's package."""
+    pkg = pathlib.PurePosixPath(rel).parent.parts
+    mods = []
+    for node in ast.walk(ast.parse((REPO / rel).read_text())):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = ".".join(pkg[:len(pkg) - node.level + 1] if node.level else ())
+            base = ".".join(filter(None, (base, node.module)))
+            mods += [f"{base}.{a.name}" for a in node.names]
+    return mods
+
+
 @pytest.mark.parametrize("rel", PORT_SOURCES)
 def test_port_imports_no_jax(rel):
     """No `import jax`, `from jax ...` or import of `ilqr_planner_tpu`."""
-    banned = []
-    for node in ast.walk(ast.parse((REPO / rel).read_text())):
-        if isinstance(node, ast.Import):
-            mods = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom):
-            mods = [node.module or ""]
-        else:
-            continue
-        banned += [m for m in mods
-                   if m.split(".")[0] in ("jax", "jaxlib", "ilqr_planner_tpu")]
+    banned = [m for m in _imports(rel)
+              if m.split(".")[0] in ("jax", "jaxlib", "ilqr_planner_tpu")]
     assert not banned, (rel, banned)
+
+
+def test_ops_import_no_solver():
+    """The layers point one way: no module under `ilqr_planner_torch/ops/`
+    imports from `ilqr_planner_torch.solvers` (the fleet hands the kernels
+    plain tables)."""
+    banned = [(rel, m) for rel in PORT_SOURCES
+              if rel.startswith("ilqr_planner_torch/ops/")
+              for m in _imports(rel)
+              if m.startswith("ilqr_planner_torch.solvers")]
+    assert not banned, banned
 
 
 BATCHES = (1, 31, 45, 2048, 4096, 4133, 36864)

@@ -2,10 +2,11 @@
 solver, on the CPU; the kernel against its twin on the card (marked
 `cuda`).
 
-On the CPU the fleet runs the twin (`fleet._kp_cost_ops`), which is the
-keypoint-cost sequence the fleet ran before the kernel (kept below as
-`_old_*`: the rollout's `_static_step_costs` and the affine line search's
-trial): every check here is bit for bit, whole solves included. On the card
+On the CPU the fleet's `_kp_cost` runs the twin (`fleet._kp_cost_ops`),
+which is the keypoint-cost sequence the fleet ran before the kernel (kept
+below as `_old_*`: the rollout's `_static_step_costs` and the affine line
+search's trial, patched in for `_kp_cost` where a whole solve runs them):
+every check here is bit for bit, whole solves included. On the card
 the kernel differs from the twin where the math library's sin, cos and
 acos do, and acos is steep at a reached target (one ulp of the dot product
 moves the distance by ~1e-4 in float32), so a lane is held against a
@@ -24,7 +25,6 @@ from ilqr_planner_torch.models import PANDA_URDF, Robot, chain_from_urdf
 from ilqr_planner_torch.models.planar import PlanarRobot
 from ilqr_planner_torch.ops import so3
 from ilqr_planner_torch.ops.cuda_kernels import kp_cost as kpc
-from ilqr_planner_torch.ops.cuda_kernels import rollout_time1
 from ilqr_planner_torch.solvers import fleet
 from ilqr_planner_torch.systems.keypoints import (AngularKeypoint,
                                                   PointKeypoint,
@@ -32,7 +32,6 @@ from ilqr_planner_torch.systems.keypoints import (AngularKeypoint,
                                                   PosOrnKeypointDistFunct,
                                                   SpacetimeKeypoint)
 from ilqr_planner_torch.systems.spec import make_spec, sequential_spec
-from ilqr_planner_torch.utils.compilemeter import host_read
 
 Q0 = np.array([0.62991112, -0.2329776, -0.01423721, -1.70254115, 0.06251303,
                1.50592777, 0.71771416])
@@ -66,8 +65,7 @@ def _old_static_step_costs(cc, X, U, cost, kpa=None):
     return cost
 
 
-def _old_trial_cost(cc, Xb, Xd, Ub, Ud, a, kpa=None):
-    cost = fleet._limit_cost_full(cc, Xb, Xd, a)
+def _old_trial_cost(cc, Xb, Xd, Ub, Ud, a, cost, kpa=None):
     for k in cc.kp_steps:
         if k < cc.H - 1:
             uk = Ub[k] + a * Ud[k]
@@ -78,61 +76,12 @@ def _old_trial_cost(cc, Xb, Xd, Ub, Ud, a, kpa=None):
     return cost
 
 
-def _old_run_trials_affine(cc, a_sched, X, U, cost0, Ks, ds, x0, inactive,
-                           kpa=None):
-    Xb, Xd, Ub, Ud, qa, qb, qc = fleet._affine_family(cc, Ks, ds, X, U, x0)
-
-    def trial(a):
-        cost = _old_trial_cost(cc, Xb, Xd, Ub, Ud, a, kpa)
-        du = torch.sqrt(torch.clamp(qa + (2.0 * a) * qb + (a * a) * qc,
-                                    min=0.0)).sum(0)
-        return cost, du
-
-    accepted = inactive.clone()
-    cost = cost0
-    du_acc = torch.zeros_like(cost0)
-    alpha = torch.ones_like(cost0)
-    n_trials = 0
-    for a in a_sched:
-        if host_read(accepted.all()):
-            break
-        ct, dut = trial(a)
-        n_trials += 1
-        ok = (ct < cost0) & ~torch.isnan(ct)
-        take = ~accepted
-        cost = torch.where(take, ct, cost)
-        du_acc = torch.where(take, dut, du_acc)
-        alpha = torch.where(take, torch.full_like(alpha, a), alpha)
-        accepted = accepted | ok
-    return Xb + alpha * Xd, Ub + alpha * Ud, cost, du_acc, alpha, n_trials
-
-
-def _old_rollout(cc, alpha, Ks, ds, Xref, Uref, x0, kpa=None):
-    if cc.time and cc.nb_deriv == 1:
-        X, U, du2 = rollout_time1.rollout_time1(alpha, Ks, ds, Xref, Uref, x0)
-    else:
-        dt, dof = cc.dt, cc.dof
-        X = x0.new_empty((cc.H,) + tuple(x0.shape))
-        U = x0.new_empty(tuple(Uref.shape))
-        du2 = x0.new_empty((cc.H - 1, x0.shape[-1]))
-        X[0] = x = x0
-        for k in range(cc.H - 1):
-            du = (Ks[k] * (x - Xref[k])[None]).sum(1) + alpha * ds[k]
-            u = Uref[k] + du
-            if cc.time:
-                s = u[cc.m - 1]
-                dtk = s * s
-                q, dq, ddq = x[:dof], x[dof:2 * dof], u[:dof]
-                x = torch.cat([q + dtk * dq + (0.5 * dtk * dtk) * ddq,
-                               dq + dtk * ddq, x[2 * dof:] + dtk])
-            elif cc.nb_deriv == 2:
-                x = torch.cat([x[:dof] + dt * x[dof:] + (0.5 * dt * dt) * u,
-                               x[dof:] + dt * u])
-            else:
-                x = x + dt * u
-            X[k + 1], U[k], du2[k] = x, u, (du * du).sum(0)
-    cost = _old_static_step_costs(cc, X, U, fleet._limit_cost_full(cc, X), kpa)
-    return X, U, cost, torch.sqrt(du2).sum(0)
+def _old_kp_cost(cc, X, U, cost, Xd=None, Ud=None, alpha=0.0, kpa=None):
+    """The two old sequences in `fleet._kp_cost`'s place: each rollout's
+    static step costs, each affine trial's keypoint terms."""
+    if Xd is None:
+        return _old_static_step_costs(cc, X, U, cost, kpa)
+    return _old_trial_cost(cc, X, Xd, U, Ud, alpha, cost, kpa)
 
 
 # ---------------------------------------------------------------------------
@@ -289,16 +238,13 @@ def _same_bits(a, b):
 @pytest.mark.parametrize("kind", sorted(SPECS))
 def test_coverage_picks_the_kernel_for_the_listed_kinds(kind):
     """The kernel path is chosen once per `_Consts`, from the spec: the
-    first-order posorn, posorn_time and point systems on one serial chain,
-    with or without object frames, constant keypoints; not per-lane
-    overrides, the double integrator, a joint subsystem or a planar
-    robot."""
+    fleet packs a table (`_kp_table`) for the first-order posorn,
+    posorn_time and point systems on one serial chain, with or without
+    object frames, constant keypoints; none for per-lane overrides, the
+    double integrator, a joint subsystem or a planar robot."""
     spec, cc = _consts(kind, torch.float64)
-    assert kpc.covers(cc) == SPECS[kind][0]
+    assert (fleet._kp_table(cc) is not None) == SPECS[kind][0]
     assert (cc.kp_table is not None) == SPECS[kind][0]
-    if not SPECS[kind][0]:
-        with pytest.raises(ValueError, match="coverage"):
-            kpc.kp_table(cc, None)
 
 
 @pytest.mark.parametrize("kind", COVERED)
@@ -308,7 +254,7 @@ def test_table_holds_the_tensor_paths_constants(kind):
     are the constants the tensor path reads, bit for bit; the table fits a
     block's shared memory."""
     _, cc = _consts(kind, torch.float32)
-    t = cc.kp_table
+    t = fleet._kp_table(cc)
     meta = t.meta.tolist()
     rep = cc.chain_of[0]
     nj, nsys, nsteps, nkp = meta[:4]
@@ -354,16 +300,20 @@ def test_table_holds_the_tensor_paths_constants(kind):
 
 @pytest.mark.parametrize("kind", COVERED)
 def test_wrapper_runs_the_twin_on_the_cpu(kind):
-    """For CPU tensors the wrapper runs the table's twin, the fleet's tensor
-    path `_kp_cost_ops`, in both forms (bit for bit), and counts no
-    launch."""
+    """For CPU tensors the fleet's `_kp_cost` runs the twin, its tensor
+    path `_kp_cost_ops`, in both forms (bit for bit), though the spec has a
+    table; the wrapper takes CUDA tensors only and raises on CPU ones; no
+    launch is counted."""
     spec, cc = _consts(kind, torch.float64)
+    assert cc.kp_table is not None
     X, U, Xb, Xd, Ub, Ud, _ = _family(spec, cc, 5, seed=1)
     cost = torch.rand(5, dtype=torch.float64)
     before = kpc.LAUNCHES
     for args in ((X, U, cost), (Xb, Ub, cost, Xd, Ud, 0.5)):
-        assert _same_bits(kpc.kp_cost(*args, table=cc.kp_table),
+        assert _same_bits(fleet._kp_cost(cc, *args),
                           fleet._kp_cost_ops(cc, *args))
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kpc.kp_cost(*args, table=cc.kp_table)
     assert kpc.LAUNCHES == before
 
 
@@ -407,9 +357,9 @@ def test_trial_and_rollout_cost_equal_the_old_path(kind, dtype):
     assert _same_bits(fleet._kp_cost(cc, X, U, cost0, kpa=kpa),
                       _old_static_step_costs(cc, X, U, cost0, kpa))
     for a in (1.0, 0.25, 2.0 ** -10):
-        want = _old_trial_cost(cc, Xb, Xd, Ub, Ud, a, kpa)
-        got = fleet._kp_cost(cc, Xb, Ub, fleet._limit_cost_full(cc, Xb, Xd, a),
-                             Xd, Ud, a, kpa)
+        lim = fleet._limit_cost_full(cc, Xb, Xd, a)
+        want = _old_trial_cost(cc, Xb, Xd, Ub, Ud, a, lim, kpa)
+        got = fleet._kp_cost(cc, Xb, Ub, lim, Xd, Ud, a, kpa)
         assert _same_bits(got, want)
     assert kpc.LAUNCHES == before
 
@@ -418,8 +368,8 @@ def test_trial_and_rollout_cost_equal_the_old_path(kind, dtype):
                                   "dead_zones", "overrides"])
 def test_fleet_solve_equals_the_old_path(kind, monkeypatch):
     """A whole fleet solve (float64) gives the bits of the same solve with
-    the old rollout cost and the old affine trial patched in: X, U, Ks, ds,
-    cost, iterations and alpha."""
+    the old rollout cost and the old affine trial cost patched in for
+    `_kp_cost`: X, U, Ks, ds, cost, iterations and alpha."""
     spec = _spec(kind, torch.float64)
     B = 6
     x0s, U0s = _batch(spec, B, seed=3)
@@ -427,8 +377,7 @@ def test_fleet_solve_equals_the_old_path(kind, monkeypatch):
     ov = _overrides(spec, B) if names else None
     nb_iter = 4 if spec.horizon == 100 else 6
     with monkeypatch.context() as m:
-        m.setattr(fleet, "_rollout", _old_rollout)
-        m.setattr(fleet, "_run_trials_affine", _old_run_trials_affine)
+        m.setattr(fleet, "_kp_cost", _old_kp_cost)
         old = fleet.make_fleet_solver(spec, nb_iter, overrides=names)(x0s, U0s, ov)
     before = kpc.LAUNCHES
     new = fleet.make_fleet_solver(spec, nb_iter, overrides=names)(x0s, U0s, ov)

@@ -4,8 +4,9 @@ solver, on the CPU; the kernel against its twins on the card (marked
 
 On the CPU the fleet runs the twins, which are the penalty math the fleet
 ran before the kernel (kept below as `_old_*`, with the old line-search
-trial that formed the trial trajectory Xa): every check here is bit for
-bit. On the card the arrays form (lx, L2) is bit for bit too; the cost
+trial's stage terms, which formed the trial trajectory Xa, patched in for
+the fleet's own where a walk or a whole solve runs them): every check here
+is bit for bit. On the card the arrays form (lx, L2) is bit for bit too; the cost
 differs from the twin's only in the order of a lane's sum of N = H n nsub
 non-negative terms, and any two orders of such a sum agree within
 2 (N - 1) u of it (u the unit roundoff, eps = 2u): the cost is held to
@@ -29,7 +30,6 @@ from ilqr_planner_torch.systems.keypoints import (AngularKeypoint,
                                                   SpacetimeKeypoint)
 from ilqr_planner_torch.systems.spec import (_limit_arrays, make_spec,
                                              sequential_spec)
-from ilqr_planner_torch.utils.compilemeter import host_read
 
 Q0 = np.array([0.62991112, -0.2329776, -0.01423721, -1.70254115, 0.06251303,
                1.50592777, 0.71771416])
@@ -78,42 +78,30 @@ def _old_cost_full(cc, X):
     return cost
 
 
-def _old_run_trials_affine(cc, a_sched, X, U, cost0, Ks, ds, x0, inactive,
-                           kpa=None):
-    Xb, Xd, Ub, Ud, qa, qb, qc = fleet._affine_family(cc, Ks, ds, X, U, x0)
-    H = cc.H
+def _old_limit_cost_full(cc, X, Xd=None, alpha=0.0):
+    return _old_cost_full(cc, X if Xd is None else X + alpha * Xd)
 
-    def trial(a):
-        Xa = Xb + a * Xd
-        cost = _old_cost_full(cc, Xa)
-        for k in cc.kp_steps:
-            if k < H - 1:
-                uk = Ub[k] + a * Ud[k]
-                for i_sub, _ in cc.kp_at[k]:
-                    cost = cost + (cc.subs[i_sub].Rt[:, None] * uk * uk).sum(0)
-            kc, _, _ = fleet._kp_terms_at(cc, k, Xa[k], False, kpa)
-            cost = cost + kc
-        du = torch.sqrt(torch.clamp(qa + (2.0 * a) * qb + (a * a) * qc,
-                                    min=0.0)).sum(0)
-        return cost, du
 
-    accepted = inactive.clone()
-    cost = cost0
-    du_acc = torch.zeros_like(cost0)
-    alpha = torch.ones_like(cost0)
-    n_trials = 0
-    for a in a_sched:
-        if host_read(accepted.all()):
-            break
-        ct, dut = trial(a)
-        n_trials += 1
-        ok = (ct < cost0) & ~torch.isnan(ct)
-        take = ~accepted
-        cost = torch.where(take, ct, cost)
-        du_acc = torch.where(take, dut, du_acc)
-        alpha = torch.where(take, torch.full_like(alpha, a), alpha)
-        accepted = accepted | ok
-    return Xb + alpha * Xd, Ub + alpha * Ud, cost, du_acc, alpha, n_trials
+def _old_kp_cost(cc, X, U, cost, Xd=None, Ud=None, alpha=0.0, kpa=None):
+    Xa = X if Xd is None else X + alpha * Xd
+    for k in cc.kp_steps:
+        if k < cc.H - 1:
+            uk = U[k] if Ud is None else U[k] + alpha * Ud[k]
+            for i_sub, _ in cc.kp_at[k]:
+                cost = cost + (cc.subs[i_sub].Rt[:, None] * uk * uk).sum(0)
+        kc, _, _ = fleet._kp_terms_at(cc, k, Xa[k], False, kpa)
+        cost = cost + kc
+    return cost
+
+
+def _patch_old_stage_terms(m):
+    """Patch the old penalty functions and the old Xa trial's terms in for
+    the fleet's stage terms (monkeypatch context `m`)."""
+    m.setattr(fleet, "_limit_arrays",
+              lambda cc, X: tuple(f(t) for f, t in zip(
+                  (torch.neg, lambda t: t), _old_arrays(cc, X))))
+    m.setattr(fleet, "_limit_cost_full", _old_limit_cost_full)
+    m.setattr(fleet, "_kp_cost", _old_kp_cost)
 
 
 # ---------------------------------------------------------------------------
@@ -277,10 +265,11 @@ def _batch(spec, seed=0):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_affine_trial_without_xa_equals_the_old_trial(dtype):
-    """The flagship's line search on the affine family, limits binding:
-    cost, alpha, Xn, Un, sum ||du|| and the trial count of the trial that
-    reads Xb and Xd are the old Xa trial's bits."""
+def test_affine_trial_without_xa_equals_the_old_trial(dtype, monkeypatch):
+    """The flagship's line search (the walk on the affine family), limits
+    binding: cost, alpha, Xn, Un, sum ||du|| and the trial count of the
+    trial that reads Xb and Xd are the bits of the same walk with the old
+    Xa trial's terms."""
     spec = _spec("posorn", DTYPES[dtype])
     cc = fleet._Consts(spec)
     x0s, U0s = _batch(spec)
@@ -294,7 +283,9 @@ def test_affine_trial_without_xa_equals_the_old_trial(dtype):
         inactive = torch.zeros(B, dtype=torch.bool)
         args = (cc, fleet._alpha_schedule(True), X, U, cost0, Ks, ds, x0, inactive)
         new = fleet._run_trials_affine(*args)
-        old = _old_run_trials_affine(*args)
+        with monkeypatch.context() as m:
+            _patch_old_stage_terms(m)
+            old = fleet._run_trials_affine(*args)
         assert new[-1] == old[-1]
         for a, b in zip(new[:-1], old[:-1]):
             assert _same_bits(a, b)
@@ -307,17 +298,13 @@ def test_affine_trial_without_xa_equals_the_old_trial(dtype):
 def test_fleet_solve_equals_the_old_penalty_path(kind, monkeypatch):
     """A whole fleet solve (float64, limits binding) with the kernel's twins
     gives the bits of the same solve with the old penalty functions and the
-    old Xa trial patched in (first and second order, the time kind's
+    old Xa trial's terms patched in (first and second order, the time kind's
     re-rollouts, a sequential spec with two limited subsystems); no kernel
     launch is counted on the CPU."""
     spec = _spec(kind, torch.float64)
     x0s, U0s = _batch(spec, seed=3)
     with monkeypatch.context() as m:
-        m.setattr(fleet, "_limit_arrays",
-                  lambda cc, X: tuple(f(t) for f, t in zip(
-                      (torch.neg, lambda t: t), _old_arrays(cc, X))))
-        m.setattr(fleet, "_limit_cost_full", _old_cost_full)
-        m.setattr(fleet, "_run_trials_affine", _old_run_trials_affine)
+        _patch_old_stage_terms(m)
         old = fleet.make_fleet_solver(spec, NB_ITER)(x0s, U0s)
     before = dict(lp.LAUNCHES)
     new = fleet.make_fleet_solver(spec, NB_ITER)(x0s, U0s)
