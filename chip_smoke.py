@@ -87,7 +87,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
      294912]: the cost of an affine trial read from the family [100, 2, 7,
      294912], the cost and the arrays of a trajectory; timeopt [100, 8,
      131072]: the cost and the arrays), its arrays bit for bit and its cost
-     within H n nsub eps of the twin's on every lane, in both types;
+     within H n nsub eps of the twin's on every lane, in both types; the
+     affine-family kernel at the posorn bulk cell's [100, 7, 294912] and
+     posorn2nd's [400, 14 (m = 7), 4096], float64 within 1e-12 of the twin
+     and float32 within twice the twin's own error, with its time beside
+     its bytes bound and the twin's;
   3. each path end to end (the flagship's first solve under a
      CompileMeter, its `first_call_split`: no nvcc run, at least one solver
      build, other_s >= 0; phase 2 has loaded every library, so it shows no
@@ -96,7 +100,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
      launched: once per backward sweep, and for the rollout once per
      line-search trial plus once for the solve's initial rollout; the
      limit penalty's cost on the flagship, posorn2nd and timeopt once per
-     trial plus once, its arrays once per sweep; no
+     trial plus once, its arrays once per sweep; the affine family once
+     an iteration on the flagship and posorn2nd, never on timeopt and the
+     recursive path; no
      backward kernel of another path may have launched), then the median of
      2 timed repeats with the spread, solves/s, median cost and iterations;
      sequential_h600 and planar2d within 2x of the JAX package's float32
@@ -625,7 +631,8 @@ def phase_device_and_build():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    from ilqr_planner_torch.ops.cuda_kernels import (kp_cost, limit_penalty,
+    from ilqr_planner_torch.ops.cuda_kernels import (affine_family, kp_cost,
+                                                     limit_penalty,
                                                      nvcc_build, riccati,
                                                      rollout_time1,
                                                      segment_backward,
@@ -640,6 +647,8 @@ def phase_device_and_build():
               **{f"riccati {n}x{nq}": (riccati, (n, nq))
                  for n, nq in ((7, 6), (7, 7), (7, 3), (6, 6), (6, 3), (7, 12),
                                (7, 13), (3, 2))},
+              **{f"affine_family n={n} m={m}": (affine_family, (n, m))
+                 for n, m in ((7, 7), (14, 7), (6, 6), (3, 3))},
               "limit_penalty": (limit_penalty, ()), "kp_cost": (kp_cost, ())}
     # the libraries already built: the build below compiles every other one
     present = set(nvcc_build.BUILD_DIR.glob("*.so"))
@@ -1194,6 +1203,126 @@ def phase_kp_cost(torch):
     return res
 
 
+# The affine family's checks: (label, (n, m), H, B) at the posorn bulk
+# cell's shape and at posorn2nd's (the double integrator).
+AF_CASES = (("posorn", (7, 7), H, 294912), ("posorn2nd", (14, 7), 400, 4096))
+
+
+def affine_family_inputs(torch, n, m, h, batch):
+    """Float64 inputs of the affine family at [h, n, batch]: the gains
+    -I/2 on the first m columns plus 0.05 N(0, 1) (a stable closed loop
+    over the horizon, as a converged sweep's are), d, the reference
+    trajectory and x0 N(0, 1), drawn on the card (seed 23) -> [Ks, ds,
+    Xref, Uref, x0]."""
+    g = torch.Generator(device="cuda").manual_seed(23)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64, device="cuda")
+
+    Ks = 0.05 * r(h - 1, m, n, batch)
+    idx = torch.arange(m, device="cuda")
+    Ks[:, idx, idx] -= 0.5
+    return [Ks, r(h - 1, m, batch), r(h, n, batch), r(h - 1, m, batch),
+            r(n, batch)]
+
+
+def affine_family_bytes(n, m, hm1, batch, itemsize):
+    """Each input read once (a step's gains, d, xo, uo; x0) and each output
+    written once (Xb, Xd [hm1 + 1, n]; Ub, Ud [hm1, m]; qa, qb, qc)."""
+    reads = (m * n + 2 * m + n) * hm1 + n
+    writes = (2 * n + 2 * m + 3) * hm1 + 2 * n
+    return (reads + writes) * batch * itemsize
+
+
+def affine_family_flops(n, m, hm1, batch):
+    """A step's two products with K (4 m n), d and uo (2 m), the update of
+    base and direction (4 n first order, 10 m the double integrator) and
+    the three coefficients (6 m), a lane."""
+    update = 10 * m if n != m else 4 * n
+    return (4 * m * n + 2 * m + update + 6 * m) * hm1 * batch
+
+
+def phase_affine_family(torch):
+    """The affine-family kernel against its twin (`affine_family_reference`,
+    the fleet's tensor path) at the posorn bulk cell's [100, 7, 294912] and
+    at posorn2nd's [400, 14 (m = 7), 4096], float64 and float32. Gates:
+    float64, every output within 1e-12 of the twin's, relative to its
+    largest entry; float32, every output's error against the float64 twin
+    within twice the float32 twin's own plus 1e-6 of its largest entry; one
+    launch a call; the launch the wrapper plans is the library's. Times:
+    the kernel's device ms under the profiler and by CUDA events over runs
+    of 5 calls, the twin's, beside the bytes bound."""
+    from ilqr_planner_torch.ops.cuda_kernels import affine_family as af
+
+    res = {}
+    for label, (n, m), h, batch in AF_CASES:
+        second = n != m
+        a64 = affine_family_inputs(torch, n, m, h, batch)
+        truth = af.affine_family_reference(*a64, 0.1, second)
+        scale = [float(t.abs().max()) for t in truth]
+        out = {"phase": "kernel_vs_twin", "name": "affine_family",
+               "shapes": {"H": h, "n": n, "m": m, "B": batch}}
+        for dtype, tag in ((torch.float64, "f64"), (torch.float32, "f32")):
+            args = [t.to(dtype) for t in a64]
+            before = af.LAUNCHES
+            got = af.affine_family(*args, 0.1, second)
+            torch.cuda.synchronize()
+            launched = af.LAUNCHES - before
+            e_k = [float((g.double() - t).abs().max()) for g, t in zip(got, truth)]
+            out[f"finite_{tag}"] = all(bool(torch.isfinite(g).all()) for g in got)
+            if tag == "f64":
+                held = all(e <= 1e-12 * sc for e, sc in zip(e_k, scale))
+                twin = truth
+            else:
+                twin = af.affine_family_reference(*args, 0.1, second)
+                e_t = [float((w.double() - t).abs().max()) for w, t in zip(twin, truth)]
+                out["twin_max_err_vs_f64_f32"] = max(e / sc for e, sc in zip(e_t, scale))
+                held = all(e <= 2 * et + 1e-6 * sc
+                           for e, et, sc in zip(e_k, e_t, scale))
+            out[f"max_abs_err_{tag}"] = max(float((g - w).abs().max())
+                                            for g, w in zip(got, twin))
+            out[f"max_err_vs_f64_{tag}"] = max(e / sc for e, sc in zip(e_k, scale))
+            out[f"held_{tag}"] = held and launched == 1
+            del got, twin
+            call = lambda: af.affine_family(*args, 0.1, second)  # noqa: E731
+            out[f"kernel_ms_{tag}"] = kernel_device_ms(torch, call,
+                                                       "affine_family_kernel")
+            out[f"kernel_ms_events_{tag}"] = cuda_ms(torch, call, inner=5)
+            out[f"twin_ms_{tag}"] = cuda_ms(
+                torch, lambda: af.affine_family_reference(*args, 0.1, second),
+                reps=3, warm=1)
+            del args
+            torch.cuda.empty_cache()
+        out.update(bound(affine_family_bytes(n, m, h - 1, batch, 4),
+                         affine_family_flops(n, m, h - 1, batch)))
+        out["bound_ms_f64"] = affine_family_bytes(n, m, h - 1, batch, 8) / PEAK_BYTES_S * 1e3
+        out["bound_share_f32"] = out["bound_ms_f32"] / out["kernel_ms_f32"]
+        out["launch"] = _launch_of(
+            torch, f"affine_family {label}",
+            lambda dt: af.launch_geometry(batch, dt, n, m),
+            lambda dt: af.kernel_geometry(batch, dt, n, m))
+        res[f"affine_family {label}"] = out
+        emit(out)
+        if not (out["finite_f64"] and out["finite_f32"]):
+            fail(f"affine_family {label}: kernel output not finite")
+        if not (out["held_f64"] and out["held_f32"]):
+            fail(f"affine_family {label}: kernel vs twin beyond the gate, or "
+                 f"not one launch a call")
+        del a64, truth
+        torch.cuda.empty_cache()
+    return res
+
+
+def _gate_affine_launches(path, counts, sweeps, lti):
+    """A fleet solve of an LTI kind launches the affine-family kernel once
+    an iteration (one family a line search); the time-optimal kinds, whose
+    trials re-roll, and the recursive route never."""
+    want = sweeps if lti else 0
+    if counts["affine_family"] != want:
+        fail(f"{path}: affine_family launched {counts['affine_family']} times "
+             f"for {sweeps} sweeps (expected {want})")
+
+
 def _gate_kp_launches(path, counts, covered):
     """Where the keypoint-cost kernel covers the spec, every cost-only
     keypoint evaluation of a fleet solve is one launch of it: the initial
@@ -1260,10 +1389,12 @@ KERNEL_FUNCTIONS = {"segment_backward_kernel": "segment_backward",
                     "riccati_kernel": "riccati",
                     "limit_penalty_cost_kernel": "limit_penalty_cost",
                     "limit_penalty_arrays_kernel": "limit_penalty_arrays",
-                    "kp_cost_kernel": "kp_cost"}
+                    "kp_cost_kernel": "kp_cost",
+                    "affine_family_kernel": "affine_family"}
 
 
 def _reset_counts():
+    from ilqr_planner_torch.ops.cuda_kernels import affine_family as af
     from ilqr_planner_torch.ops.cuda_kernels import kp_cost as kpc
     from ilqr_planner_torch.ops.cuda_kernels import limit_penalty as lp
     from ilqr_planner_torch.ops.cuda_kernels import riccati as ric
@@ -1275,6 +1406,7 @@ def _reset_counts():
     sb.LAUNCHES = 0
     rt1.LAUNCHES = 0
     kpc.LAUNCHES = 0
+    af.LAUNCHES = 0
     ric.LAUNCHES = 0
     for launches in (sb2.LAUNCHES, lp.LAUNCHES):
         for k in launches:
@@ -1285,6 +1417,7 @@ def _reset_counts():
 
 
 def _read_counts():
+    from ilqr_planner_torch.ops.cuda_kernels import affine_family as af
     from ilqr_planner_torch.ops.cuda_kernels import kp_cost as kpc
     from ilqr_planner_torch.ops.cuda_kernels import limit_penalty as lp
     from ilqr_planner_torch.ops.cuda_kernels import riccati as ric
@@ -1299,7 +1432,8 @@ def _read_counts():
             "rollout_time1": rt1.LAUNCHES, "riccati": ric.LAUNCHES,
             "limit_penalty_cost": lp.LAUNCHES["cost"],
             "limit_penalty_arrays": lp.LAUNCHES["arrays"],
-            "kp_cost": kpc.LAUNCHES, "trials": fleet.TRIALS, "recursive_trials": ilqr.TRIALS,
+            "kp_cost": kpc.LAUNCHES, "affine_family": af.LAUNCHES,
+            "trials": fleet.TRIALS, "recursive_trials": ilqr.TRIALS,
             "generic_sweeps": fleet.GENERIC_SWEEPS}
 
 
@@ -1385,6 +1519,7 @@ def phase_flagship(torch):
              f"times for {sweeps} sweeps")
     _gate_limit_launches("flagship", counts, sweeps)
     _gate_kp_launches("flagship", counts, True)
+    _gate_affine_launches("flagship", counts, sweeps, True)
     others = [k for k in KERNELS if counts[k] and k != "segment_backward"]
     if others:
         fail(f"flagship: kernels of other paths launched: {others}")
@@ -1415,6 +1550,7 @@ def phase_recursive(torch):
     if counts["recursive_trials"] < sweeps:
         fail(f"recursive: {counts['recursive_trials']} line-search trials for "
              f"{sweeps} iterations")
+    _gate_affine_launches("recursive", counts, sweeps, False)
     others = [k for k in KERNELS if counts[k] and k != "riccati"]
     if others or counts["trials"]:
         fail(f"recursive: the fleet path ran (kernels {others}, "
@@ -1459,6 +1595,7 @@ def phase_new_path(torch, path):
         fail(f"{path}: {kern} launched {counts[kern]} times for {sweeps} sweeps")
     _gate_limit_launches(path, counts, sweeps)
     _gate_kp_launches(path, counts, path == "timeopt")
+    _gate_affine_launches(path, counts, sweeps, path == "posorn2nd")
     # the time-optimal rollout: once per line-search trial, and once for the
     # solve's initial rollout
     if path == "timeopt" and (counts["trials"] == 0 or
@@ -3723,6 +3860,7 @@ def main():
     kv.update(timed("kernels_vs_twins", phase_al_kernel, torch))
     kv.update(timed("kernels_vs_twins", phase_limit_penalty, torch))
     kv.update(timed("kernels_vs_twins", phase_kp_cost, torch))
+    kv.update(timed("kernels_vs_twins", phase_affine_family, torch))
     e2e = {}
     out_ov, run_ov, ov = timed("flagship_ov", phase_flagship_ov, torch)
     e2e["flagship_ov"] = (out_ov, run_ov)
@@ -3793,6 +3931,8 @@ def main():
               "(ilqr_planner_tpu/solvers/fleet.py _limit_arrays, _limit_cost_full)")
     kp_src = ("none: XLA fuses the JAX package's jnp keypoint terms "
               "(ilqr_planner_tpu/solvers/fleet.py _kp_terms_at)")
+    af_src = ("none: XLA fuses the JAX package's scan of jnp operations "
+              "(ilqr_planner_tpu/solvers/fleet.py _affine_family)")
     riccati_row = row(
         "riccati", "riccati.cu", ric_src, kv["riccati"],
         e2e["recursive"][0]["launches"]["riccati"], "recursive", width="7x6",
@@ -3859,7 +3999,14 @@ def main():
               width=f"{form} {cell}_h100.bulk shape")
           for cell, path in (("posorn", "flagship"), ("timeopt", "timeopt"))
           for form in ("affine", "plain")
-          if f"kp_cost {cell} {form}" in kv]],
+          if f"kp_cost {cell} {form}" in kv],
+        *[row("affine_family", "affine_family.cu", af_src,
+              kv[f"affine_family {label}"],
+              e2e[path][0]["launches"]["affine_family"], path,
+              width=f"n={n} m={m} H={h} B={batch}",
+              bound_ms_f64=kv[f"affine_family {label}"]["bound_ms_f64"])
+          for (label, (n, m), h, batch), path in zip(AF_CASES,
+                                                     ("flagship", "posorn2nd"))]],
         "phase_s": phase_s, "total_s": time.time() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

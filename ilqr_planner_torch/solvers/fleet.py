@@ -20,7 +20,8 @@ double integrator, AL terms that do not fold) is the generic per-step sweep
 (`ops/step_terms.py`), in plain tensor ops as the JAX package runs it in
 XLA. The walk's trial (`_pick_ls_mode` chooses): the LTI kinds' affine
 family (`_affine_family`, `_run_trials_affine`: one pass over the horizon,
-then scan-free trials); the time-optimal kinds, whose B depends on u,
+one launch of `ops/cuda_kernels/affine_family.py` on the card, then
+scan-free trials); the time-optimal kinds, whose B depends on u,
 re-roll each trial (`_run_trials`): on the card every closed-loop rollout of
 the first-order kind, the initial one included, is one launch of
 `ops/cuda_kernels/rollout_time1.py`, and the double integrator's is a loop
@@ -63,6 +64,8 @@ import torch
 
 from ilqr_planner_torch.models.planar import FD_STEP
 from ilqr_planner_torch.ops.cuda_kernels import kp_cost as kpc
+from ilqr_planner_torch.ops.cuda_kernels.affine_family import (
+    affine_family, affine_family_reference)
 from ilqr_planner_torch.ops.cuda_kernels.limit_penalty import (limit_arrays,
                                                                limit_cost)
 from ilqr_planner_torch.ops.cuda_kernels.rollout_time1 import rollout_time1
@@ -951,37 +954,11 @@ def _pick_ls_mode(cc: _Consts, ls: str):
 def _affine_family(cc: _Consts, Ks, ds, Xref, Uref, x0):
     """The exact affine trial family: Xb/Xd [H, n, B], Ub/Ud [H-1, m, B],
     and the per-step ||du||^2 coefficients (a, b, c) [H-1, B] with
-    ||du_k(alpha)||^2 = a_k + 2 alpha b_k + alpha^2 c_k.
-
-    Base (alpha = 0) and direction are carried together as [2, n, B]: the
-    direction's reference state and control are zero, so one product with
-    K serves both."""
-    H, dt, dof = cc.H, cc.dt, cc.dof
-    B = x0.shape[-1]
-    zX = torch.zeros_like(Xref[:-1])
-    ref_x = torch.stack([Xref[:-1], zX], dim=1)            # [H-1, 2, n, B]
-    ref_u = torch.stack([Uref, torch.zeros_like(Uref)], dim=1)
-    Xbd = x0.new_empty((H, 2) + tuple(x0.shape))
-    Xbd[0, 0] = x0
-    Xbd[0, 1] = 0.0
-    DU = x0.new_empty((H - 1, 2, cc.m, B))
-    xbd = Xbd[0]
-    for k in range(H - 1):
-        du = (Ks[k][None] * (xbd - ref_x[k])[:, None]).sum(2)  # [2, m, B]
-        du[1] += ds[k]
-        DU[k] = du
-        v = du + ref_u[k]
-        if cc.nb_deriv == 2:
-            # semi-implicit Euler, on the base and (linearly) the direction
-            q, dq = xbd[:, :dof], xbd[:, dof:]
-            xbd = torch.cat([q + dt * dq + (0.5 * dt * dt) * v, dq + dt * v],
-                            dim=1)
-        else:
-            xbd = xbd + dt * v
-        Xbd[k + 1] = xbd
-    dub, dud = DU[:, 0], DU[:, 1]
-    return (Xbd[:, 0], Xbd[:, 1], Uref + dub, dud, (dub * dub).sum(1),
-            (dub * dud).sum(1), (dud * dud).sum(1))
+    ||du_k(alpha)||^2 = a_k + 2 alpha b_k + alpha^2 c_k. One launch of
+    `ops/cuda_kernels/affine_family.py` for CUDA tensors, its twin (the
+    tensor path, `affine_family_reference`) on the CPU."""
+    family = affine_family if x0.is_cuda else affine_family_reference
+    return family(Ks, ds, Xref, Uref, x0, cc.dt, cc.nb_deriv == 2)
 
 
 def _walk(a_sched, cost0, inactive, trial, carry=()):

@@ -11,7 +11,8 @@
     widths and at 6 and 3 DoF; riccati at each residual width, at the
     sequential specs' 12 and 13, the planar 2 and its widest; the limit
     penalty's two forms at the arm's state widths, first and second order
-    and time-optimal) cover every lane of a batch and stay within the
+    and time-optimal; the affine family, first order and the double
+    integrator, at 7, 6 and 3 DoF) cover every lane of a batch and stay within the
     shared memory a block may take on the H100; every width up to a
     wrapper's stated limit fits a block; and the wrappers' constants are
     the ones the CUDA sources define.
@@ -24,7 +25,8 @@ import re
 import pytest
 import torch
 
-from ilqr_planner_torch.ops.cuda_kernels import (limit_penalty, nvcc_build,
+from ilqr_planner_torch.ops.cuda_kernels import (affine_family,
+                                                 limit_penalty, nvcc_build,
                                                  riccati, rollout_time1,
                                                  segment_backward,
                                                  segment_backward_2nd)
@@ -178,6 +180,12 @@ GEOMETRIES = {
         B, dt, d, nq)) for d, nq in ((7, 12), (7, 13), (3, 2))},
     "riccati_max_n_x_max_nq": lambda B, dt: riccati.launch_geometry(
         B, dt, riccati.MAX_N[dt], riccati.MAX_NQ[dt]),
+    # the affine family: first order (n = m) and the double integrator
+    # (n = 2m) at each DoF
+    **{f"affine_family_n{d}_m{d}": (lambda B, dt, d=d: affine_family.launch_geometry(
+        B, dt, d, d)) for d in DOFS},
+    **{f"affine_family_n{2 * d}_m{d}": (lambda B, dt, d=d: affine_family.launch_geometry(
+        B, dt, 2 * d, d)) for d in DOFS},
 }
 
 
@@ -257,6 +265,11 @@ LIMITS = {
     **{f"riccati_nq{label}": (riccati.MAX_N, 1, lambda w, dt, i=i: riccati.launch_geometry(
         64, dt, w, riccati.residual_widths(w)[i]))
        for i, label in enumerate(("6", "n", "3"))},
+    **{f"affine_family{tag}": (
+        {dt: affine_family.MAX_M[(second, dt)] for dt in (torch.float32, torch.float64)},
+        1, lambda w, dt, second=second: affine_family.launch_geometry(
+            64, dt, 2 * w if second else w, w))
+       for second, tag in ((False, ""), (True, "_2nd"))},
     # the residual width nq, at each type's widest chain
     "riccati_residual": (riccati.MAX_NQ, 1, lambda w, dt: riccati.launch_geometry(
         64, dt, riccati.MAX_N[dt], w)),
